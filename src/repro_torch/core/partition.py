@@ -1,0 +1,102 @@
+"""Node orderings and padded permutes for the edge-blocked layout.
+
+The port keeps its own copy of the host-side numpy planners of
+``repro.core.partition`` (the reverse Cuthill-McKee order and its
+structure-hash cache), so a layout planned here is bit-identical to the
+reference's.  Only :func:`gather_padded` touches tensors.
+"""
+from __future__ import annotations
+
+from collections import OrderedDict, deque
+
+import numpy as np
+import torch
+
+
+def rcm_order(src: np.ndarray, dst: np.ndarray, num_nodes: int,
+              reverse: bool = True) -> np.ndarray:
+    """(Reverse) Cuthill-McKee node ordering: new position -> old node id.
+
+    BFS from a minimum-degree node per component, visiting neighbours in
+    increasing-degree order; the reversal minimizes profile/bandwidth of
+    the reordered adjacency.  A banded ordering is what makes the
+    edge-blocked layout's halo windows small (graph.plan_edge_blocks):
+    after relabeling, every edge connects nearby node ids, so the edges
+    incident to a contiguous node block occupy a short contiguous range.
+    """
+    V = num_nodes
+    E = len(src)
+    deg = np.zeros(V, dtype=np.int64)
+    np.add.at(deg, src, 1)
+    np.add.at(deg, dst, 1)
+    # CSR adjacency with neighbour lists sorted by (degree, id): one
+    # global lexsort instead of per-node python list sorts
+    ends = np.concatenate([src, dst])
+    nbrs = np.concatenate([dst, src])
+    csr_order = np.lexsort((nbrs, deg[nbrs], ends))
+    nbrs = nbrs[csr_order]
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(
+        ends, minlength=V))]) if E else np.zeros(V + 1, np.int64)
+
+    visited = np.zeros(V, dtype=bool)
+    order = np.empty(V, dtype=np.int64)
+    pos = 0
+    # component seeds in min-degree order (isolated nodes come first,
+    # which conveniently packs them into the same blocks)
+    seeds = np.argsort(deg, kind="stable")
+    queue: deque[int] = deque()
+    for seed in seeds:
+        if visited[seed]:
+            continue
+        visited[seed] = True
+        queue.append(int(seed))
+        while queue:
+            v = queue.popleft()
+            order[pos] = v
+            pos += 1
+            ns = nbrs[indptr[v]:indptr[v + 1]]
+            ns = ns[~visited[ns]]
+            visited[ns] = True
+            queue.extend(ns.tolist())
+    assert pos == V
+    return order[::-1].copy() if reverse else order
+
+
+# RCM orders keyed by graph structure hash: re-planning an isomorphic
+# graph (e.g. a graph whose data changed but whose edges did not) reuses
+# the BFS result.  Bounded LRU so long-lived processes with many distinct
+# structures don't grow without limit.
+_RCM_CACHE: "OrderedDict[tuple[str, bool], np.ndarray]" = OrderedDict()
+_RCM_CACHE_MAX = 128
+
+
+def rcm_order_cached(graph, reverse: bool = True) -> np.ndarray:
+    """:func:`rcm_order` memoized by ``graph.structure_hash()``."""
+    key = (graph.structure_hash(), reverse)
+    order = _RCM_CACHE.get(key)
+    if order is None:
+        order = rcm_order(graph.src.cpu().numpy().astype(np.int64),
+                          graph.dst.cpu().numpy().astype(np.int64),
+                          graph.num_nodes, reverse=reverse)
+        order.setflags(write=False)
+        _RCM_CACHE[key] = order
+        while len(_RCM_CACHE) > _RCM_CACHE_MAX:
+            _RCM_CACHE.popitem(last=False)
+    else:
+        _RCM_CACHE.move_to_end(key)
+    return order
+
+
+def gather_padded(arr: torch.Tensor, perm: torch.Tensor,
+                  fill: float = 0.0) -> torch.Tensor:
+    """Gather rows of ``arr`` by a -1-padded permutation.
+
+    ``perm`` maps output row -> input row, with -1 marking padding rows
+    that receive ``fill``.  The single implementation behind every padded
+    permute of the edge-blocked layout.
+    """
+    perm = perm.to(device=arr.device, dtype=torch.long)
+    out = arr[perm.clamp(0, max(arr.shape[0] - 1, 0))]
+    valid = (perm >= 0).reshape((-1,) + (1,) * (arr.ndim - 1))
+    return torch.where(valid, out, torch.tensor(fill, dtype=arr.dtype,
+                                                device=arr.device))

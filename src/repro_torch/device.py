@@ -1,0 +1,24 @@
+"""The port's one device rule.
+
+Every entry point of :mod:`repro_torch` takes ``device=None``, and
+``None`` means the CUDA card: the port exists to run on an NVIDIA GPU,
+so a missing card is an error, never a quiet move to the CPU.  Callers
+that want the CPU (the tests) ask for it with ``device="cpu"``.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> the current CUDA device; anything else as given.
+
+    Raises ``RuntimeError`` when CUDA is asked for (explicitly or by
+    default) and ``torch.cuda.is_available()`` is false.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run the plain PyTorch path")
+    return dev

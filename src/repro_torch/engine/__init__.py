@@ -1,0 +1,22 @@
+"""The port's engine layer: one primal-dual step, its executors, one loop.
+
+  * :mod:`repro_torch.engine.step` — the canonical :func:`pd_step` over a
+    :class:`GraphExecutor`, the eq.-11 :func:`certificate`, and the
+    fixed-point :func:`pd_residual`,
+  * :mod:`repro_torch.engine.executors` — the dense gather-sum and the
+    edge-blocked window executors,
+  * :mod:`repro_torch.engine.loop` — metric cadence, iteration caps and
+    continuation defaults.
+"""
+from repro_torch.engine.executors import DenseExecutor, WindowExecutor
+from repro_torch.engine.loop import (capped, default_warm_lam, iter_cap,
+                                     scan_solve)
+from repro_torch.engine.step import (GraphExecutor, certificate,
+                                     ensure_column, optimality_gap,
+                                     pd_residual, pd_step)
+
+__all__ = [
+    "DenseExecutor", "GraphExecutor", "WindowExecutor", "capped",
+    "certificate", "default_warm_lam", "ensure_column", "iter_cap",
+    "optimality_gap", "pd_residual", "pd_step", "scan_solve",
+]

@@ -1,0 +1,78 @@
+"""The port's realizations of the engine's :class:`GraphExecutor`.
+
+  * :class:`DenseExecutor`  — padded incidence-table gather-sum over the
+    whole graph (the dense backend),
+  * :class:`WindowExecutor` — the windows of the edge-blocked layout
+    (the fused kernel's plain version, ``kernels.ref``).
+
+Executors also stand in for the graph inside the regularizer resolvents:
+``weights`` is the per-owned-edge A_e in the executor's own edge order.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseExecutor:
+    """Single-device executor over an :class:`EmpiricalGraph`."""
+
+    graph: Any
+
+    @property
+    def weights(self) -> torch.Tensor:
+        return self.graph.weights
+
+    def gather_duals(self, u: torch.Tensor) -> torch.Tensor:
+        return self.graph.incidence_transpose_apply(u)
+
+    def edge_diff(self, z: torch.Tensor) -> torch.Tensor:
+        return self.graph.incidence_apply(z)
+
+    def owned_duals(self, u: torch.Tensor) -> torch.Tensor:
+        return u
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowExecutor:
+    """The windows of the edge-blocked layout (``EdgeBlockLayout``),
+    stacked over a leading block axis B.
+
+    The reference vmaps one window over the blocks; here the block axis
+    is written out.  ``w`` is the (B, NW, n) node windows (owned + halo
+    blocks), the gather-side dual state is the (B, EW, n) edge windows,
+    and each window *owns* the (EB, n) rows at offset ``klo * EB``
+    inside it.  ``inc_local`` holds window-relative edge ids
+    (pre-clipped), ``src_local`` / ``dst_local`` window-relative node ids
+    per owned edge.  ``weights`` carries the already lambda-scaled clip
+    levels ``lam * A_e`` for the owned edges, so the canonical step is
+    invoked with ``lam = 1.0``.
+    """
+
+    inc_local: torch.Tensor     # (B, NW, max_deg) window-relative edge ids
+    inc_signs: torch.Tensor     # (B, NW, max_deg) +1 / -1 / 0
+    src_local: torch.Tensor     # (B, EB) window-relative src node ids
+    dst_local: torch.Tensor     # (B, EB) window-relative dst node ids
+    weights: torch.Tensor       # (B, EB, 1) lam * A_e per owned edge
+    klo: int
+    block_edges: int
+
+    def _rows(self, a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """Per-block row gather: a (B, R, n), idx (B, ...) -> (B, ..., n)."""
+        b = torch.arange(a.shape[0], device=a.device).reshape(
+            (-1,) + (1,) * (idx.ndim - 1))
+        return a[b, idx]
+
+    def gather_duals(self, u: torch.Tensor) -> torch.Tensor:
+        gathered = self._rows(u, self.inc_local)     # (B, NW, max_deg, n)
+        return torch.einsum("bvd,bvdn->bvn", self.inc_signs, gathered)
+
+    def edge_diff(self, z: torch.Tensor) -> torch.Tensor:
+        return self._rows(z, self.src_local) - self._rows(z, self.dst_local)
+
+    def owned_duals(self, u: torch.Tensor) -> torch.Tensor:
+        eb = self.block_edges
+        return u[:, self.klo * eb:(self.klo + 1) * eb]

@@ -1,0 +1,161 @@
+"""The canonical primal-dual iteration (paper Algorithm 1, eqs. 14-15).
+
+The port's single statement of the iteration math, as
+``repro.engine.step`` is the reference's.  One step is four primitives
+over a :class:`GraphExecutor`:
+
+    gather duals   dtu = D^T u            (executor.gather_duals)
+    primal prox    w+  = PU(w - T dtu)    (loss prox, eq. 17)
+    edge diff      dw  = D (2 w+ - w)     (executor.edge_diff)
+    dual prox      u+  = prox_{sigma dg*}(u + Sigma dw)   (step 10)
+
+plus the Krasnosel'skii-Mann relaxation folded in when ``rho != 1``.
+The dense backend runs it through ``executors.DenseExecutor``, and the
+fused kernel's plain version (``kernels.ref.fused_pd_step_ref``) runs it
+through ``executors.WindowExecutor``.
+"""
+from __future__ import annotations
+
+from typing import Callable, Protocol, runtime_checkable
+
+import torch
+
+
+def ensure_column(x):
+    """(N,) -> (N, 1); scalars and already-columned tensors pass through.
+
+    The engine's one shape convention: per-node/per-edge coefficient
+    vectors broadcast against (N, n) signals as columns.
+    """
+    if isinstance(x, torch.Tensor) and x.ndim == 1:
+        return x[:, None]
+    return x
+
+
+_col = ensure_column
+
+
+@runtime_checkable
+class GraphExecutor(Protocol):
+    """How one backend realizes the two graph operators of Algorithm 1.
+
+    ``weights`` carries the per-owned-edge A_e (executor edge order), so
+    the executor can stand in for the graph inside the regularizer's
+    dual resolvent.  ``owned_duals`` maps the dual state the gather
+    reads to the dual rows this executor updates.
+    """
+
+    weights: torch.Tensor
+
+    def gather_duals(self, u: torch.Tensor) -> torch.Tensor:
+        """D^T u: (E', n) dual state -> (V', n) node aggregate."""
+        ...
+
+    def edge_diff(self, z: torch.Tensor) -> torch.Tensor:
+        """D z: (V', n) node signal -> (E_owned, n) edge differences."""
+        ...
+
+    def owned_duals(self, u: torch.Tensor) -> torch.Tensor:
+        """The (E_owned, n) rows of ``u`` this executor updates."""
+        ...
+
+
+def pd_step(executor: GraphExecutor, prox: Callable, regularizer, lam,
+            tau: torch.Tensor, sigma: torch.Tensor, w: torch.Tensor,
+            u: torch.Tensor, *, rho: float = 1.0):
+    """One primal-dual step — eqs. 14-15.
+
+    primal (eq. 17):  w+ = PU(w - T D^T u)
+    dual  (step 10):  u+ = prox_{sigma dg*}(u + Sigma D (2 w+ - w))
+    KM relaxation:    x  <- x + rho (x+ - x)  (duals re-projected)
+
+    Returns ``(w_new, u_new)`` with ``u_new`` over the executor's owned
+    edges.
+    """
+    tau_c = _col(tau)
+    sigma_c = _col(sigma)
+    dtu = executor.gather_duals(u)
+    w_new = prox(w - tau_c * dtu)
+    dw = executor.edge_diff(2.0 * w_new - w)
+    u_own = executor.owned_duals(u)
+    u_new = regularizer.dual_prox(u_own + sigma_c * dw, executor, lam,
+                                  sigma)
+    if rho != 1.0:
+        w_new = w + rho * (w_new - w)
+        u_new = regularizer.project_dual(
+            u_own + rho * (u_new - u_own), executor, lam)
+    return w_new, u_new
+
+
+def pd_residual(tau, sigma, w, u, w_new, u_new) -> torch.Tensor:
+    """Scaled fixed-point residual of the PD operator — the eq.-11 proxy:
+    max of ``|w+ - w| / tau`` and ``|u+ - u| / sigma`` (order-independent,
+    so every backend computes the identical residual from identical
+    iterates)."""
+    rp = torch.max(torch.abs(w_new - w) / _col(tau))
+    rd = torch.max(torch.abs(u_new - u) / _col(sigma))
+    return torch.maximum(rp, rd)
+
+
+def certificate(problem, w: torch.Tensor, u: torch.Tensor) -> dict:
+    """Optimality diagnostics from the coupled conditions (paper eq. 11).
+
+    * dual feasibility (regularizer-defined; <= 0 means feasible),
+    * stationarity residual at labeled nodes for the squared loss,
+    * for squared loss + TV, the true duality gap :func:`optimality_gap`.
+    """
+    from repro_torch.api.losses import SquaredLoss
+    from repro_torch.api.regularizers import TotalVariation
+
+    diag = {"dual_infeasibility": problem.regularizer.dual_infeasibility(
+        u, problem.graph, problem.lam)}
+    if isinstance(problem.loss, SquaredLoss):
+        data = problem.data
+        pred = torch.einsum("vmn,vn->vm", data.x, w)
+        r = (pred - data.y) * data.sample_mask
+        grad = 2.0 * torch.einsum("vm,vmn->vn", r,
+                                  data.x) / data.counts()[:, None]
+        grad = grad * data.labeled_mask[:, None]
+        station = grad + (problem.graph.incidence_transpose_apply(u)
+                          * data.labeled_mask[:, None])
+        diag["stationarity_residual_labeled"] = torch.max(
+            torch.abs(station))
+        if isinstance(problem.regularizer, TotalVariation):
+            diag["optimality_gap"] = optimality_gap(problem, w, u)
+    return diag
+
+
+def optimality_gap(problem, w: torch.Tensor, u: torch.Tensor
+                   ) -> torch.Tensor:
+    """True eq.-11 duality gap for squared loss + TV: ``P(w) - g(u)``.
+
+    At the feasible dual point ``clip(u, +-lam A_e)`` the Lagrangian dual
+    is ``g(u) = sum_i min_{w_i in B_R} [ell_i(w_i) + z_i^T w_i]`` with
+    ``z = D^T u`` and ``R = 2 max_i |w_i|_2 + 1``.  Labeled nodes solve
+    the regularized normal equations via pinv with the first-order ball
+    bound for null-space components; unlabeled nodes are exact:
+    ``-R |z_i|``.  Weak duality makes the gap a certified upper bound on
+    ``P(w) - P*`` (see ``repro.engine.step.optimality_gap``).
+    """
+    data = problem.data
+    lam_a = (problem.lam * problem.graph.weights)[:, None]
+    u_feas = torch.minimum(torch.maximum(u, -lam_a), lam_a)
+    z = problem.graph.incidence_transpose_apply(u_feas)        # (V, n)
+    cnt = data.counts()[:, None]
+    xm = data.x * data.sample_mask[..., None]
+    q = torch.einsum("vmn,vmk->vnk", xm, data.x) / cnt[..., None]
+    c = torch.einsum("vmn,vm->vn", xm, data.y) / cnt
+    yty = torch.sum(data.y ** 2 * data.sample_mask, dim=1) / cnt[:, 0]
+    radius = 2.0 * torch.max(torch.linalg.norm(w, dim=1)) + 1.0
+
+    rhs = c - 0.5 * z
+    w_star = torch.einsum("vnk,vk->vn", torch.linalg.pinv(q), rhs)
+    lval = (torch.einsum("vn,vnk,vk->v", w_star, q, w_star)
+            - 2.0 * torch.sum(c * w_star, dim=1) + yty)
+    # grad of f(w) = ell(w) + z^T w at w*: 2 (Q w* - rhs)
+    grad = 2.0 * (torch.einsum("vnk,vk->vn", q, w_star) - rhs)
+    g_lab = (lval + torch.sum(z * w_star, dim=1)
+             - 2.0 * radius * torch.linalg.norm(grad, dim=1))
+    g_unl = -radius * torch.linalg.norm(z, dim=1)
+    g = torch.sum(torch.where(data.labeled_mask > 0, g_lab, g_unl))
+    return (problem.objective(w) - g).to(torch.float32)

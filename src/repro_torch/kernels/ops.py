@@ -1,0 +1,27 @@
+"""Public entry points for the port's kernels.
+
+Each op launches its CUDA kernel on CUDA tensors and runs the plain
+PyTorch version on CPU tensors — the device of the tensors it is given
+decides, and nothing else: there is no fallback from the card.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.pd_step import fused_pd_step as _fused_pd_step
+
+
+def pd_step(w_store, u_store, inc_edges, inc_signs, params, tau, src, dst,
+            sigma, la, *, loss, reg, pkeys, block_nodes, block_edges, kn,
+            klo, khi, rho=1.0, iters=1, compute_residual=False):
+    """Fused primal-dual step over an edge-blocked layout (Algorithm 1
+    body in one pass): the CUDA kernel for tensors on the card, the plain
+    version for tensors on the CPU.  ``params`` is the tuple of
+    ``loss.prox_setup`` leaves in ``pkeys`` (sorted-key) order; shapes per
+    ``kernels.ref.fused_pd_step_ref``."""
+    fn = (_ref.fused_pd_step_ref if w_store.device.type == "cpu"
+          else _fused_pd_step)
+    return fn(w_store, u_store, inc_edges, inc_signs, params, tau, src,
+              dst, sigma, la, loss=loss, reg=reg, pkeys=pkeys,
+              block_nodes=block_nodes, block_edges=block_edges, kn=kn,
+              klo=klo, khi=khi, rho=rho, iters=iters,
+              compute_residual=compute_residual)

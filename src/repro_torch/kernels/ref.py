@@ -1,0 +1,135 @@
+"""Plain PyTorch versions of the port's kernels.
+
+Each function states what the matching kernel computes, runs on any
+device, and is what a kernel wrapper uses for a tensor on the CPU.  The
+fused primal-dual window step is not restated here: it is the canonical
+:func:`repro_torch.engine.step.pd_step` evaluated through a
+:class:`repro_torch.engine.executors.WindowExecutor`, as in the
+reference's ``repro.kernels.ref``.  Storage is float32.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.engine.executors import WindowExecutor
+from repro_torch.engine.step import pd_step as _engine_pd_step
+
+
+def pd_window_step(w_win: torch.Tensor, u_win: torch.Tensor,
+                   inc_local: torch.Tensor, inc_signs: torch.Tensor,
+                   params_win: tuple, tau_win: torch.Tensor,
+                   src_local: torch.Tensor, dst_local: torch.Tensor,
+                   sigma: torch.Tensor, la: torch.Tensor, *, loss, reg,
+                   pkeys: tuple, klo: int, block_edges: int,
+                   rho: float = 1.0):
+    """One fused primal-dual step on a stack of B layout windows.
+
+    Builds the window executor and the windowed prox, then runs the
+    canonical engine step.  Window shapes (see
+    ``core.graph.EdgeBlockLayout``), each with a leading block axis B:
+    ``w_win`` (B, NW, n), ``u_win`` (B, EW, n), ``inc_local`` /
+    ``inc_signs`` (B, NW, max_deg) with edge ids already relative to the
+    window (pre-clipped), ``params_win`` a tuple of per-node prox
+    parameter windows (leaves (B, NW, ...), keyed by ``pkeys`` — the
+    sorted keys of ``loss.prox_setup``), ``tau_win`` (B, NW, 1), and per
+    *owned* edge ``src_local`` / ``dst_local`` (B, EB), ``sigma`` /
+    ``la`` (B, EB, 1) with ``la`` the pre-scaled ``lam * A_e`` (the
+    canonical step runs at ``lam = 1``).  Returns (w_relaxed_window
+    (B, NW, n), u_new_owned (B, EB, n)).
+    """
+    executor = WindowExecutor(
+        inc_local=inc_local, inc_signs=inc_signs, src_local=src_local,
+        dst_local=dst_local, weights=la, klo=klo, block_edges=block_edges)
+    params = dict(zip(pkeys, params_win))
+
+    def prox(v):
+        return loss.prox_apply(params, v)
+
+    return _engine_pd_step(executor, prox, reg, 1.0, tau_win, sigma, w_win,
+                           u_win, rho=rho)
+
+
+def window_residual(w_old: torch.Tensor, u_old: torch.Tensor,
+                    w_new: torch.Tensor, u_new: torch.Tensor,
+                    tau_owned: torch.Tensor,
+                    sigma: torch.Tensor) -> torch.Tensor:
+    """eq.-11 residual over the windows' *owned* rows: the max of
+    ``|w_new - w_old| / tau`` over owned nodes and ``|u_new - u_old| /
+    sigma`` over owned edges, across every block.  Layout padding rows
+    are inert (their state never moves), so they contribute 0."""
+    rp = torch.max(torch.abs(w_new - w_old) / tau_owned)
+    rd = torch.max(torch.abs(u_new - u_old) / sigma)
+    return torch.maximum(rp, rd)
+
+
+def fused_pd_step_ref(w_store: torch.Tensor, u_store: torch.Tensor,
+                      inc_edges: torch.Tensor, inc_signs: torch.Tensor,
+                      params: tuple, tau: torch.Tensor,
+                      src: torch.Tensor, dst: torch.Tensor,
+                      sigma: torch.Tensor, la: torch.Tensor, *, loss, reg,
+                      pkeys: tuple, block_nodes: int, block_edges: int,
+                      kn: int, klo: int, khi: int, rho: float = 1.0,
+                      iters: int = 1, compute_residual: bool = False):
+    """Plain version of the fused PD kernel: the window step over every
+    block at once (the reference vmaps it).
+
+    Storage shapes (layout order, see ``EdgeBlockLayout``):
+      w_store (nb*BV + (kn-1)*BV, n), u_store ((nb+klo+khi)*EB, n),
+      inc_edges/inc_signs/tau and every ``params`` leaf padded to the
+      same node-store rows, src/dst/sigma/la (nb*EB, 1).
+    Returns (w_new (nb*BV, n), u_new (nb*EB, n)), plus the f32 scalar
+    eq.-11 residual of the call with ``compute_residual`` (max over
+    blocks; for ``iters > 1`` the running max over iterations).
+    ``iters > 1`` requires nb == 1: the window is then the whole graph
+    and the relaxed output feeds straight back in.
+    """
+    bv, eb = block_nodes, block_edges
+    nb = src.shape[0] // eb
+    if iters != 1 and nb != 1:
+        raise ValueError("multi-iteration fusion requires a single block")
+    n = w_store.shape[1]
+    nw, ew = kn * bv, (klo + 1 + khi) * eb
+    dev = w_store.device
+
+    n0 = torch.arange(nb, device=dev) * bv                  # window starts
+    e0 = torch.arange(nb, device=dev) * eb
+    nrow = n0[:, None] + torch.arange(nw, device=dev)       # (nb, NW)
+    erow = e0[:, None] + torch.arange(ew, device=dev)       # (nb, EW)
+    w_win, u_win = w_store[nrow], u_store[erow]
+    isg = inc_signs[nrow]
+    params_win = tuple(a[nrow] for a in params)
+    tau_win = tau[nrow]                                     # (nb, NW, 1)
+    sg = sigma.reshape(nb, eb, 1)
+    bd = la.reshape(nb, eb, 1)
+    # storage ids -> window-local (clipped; sign 0 kills stray slots)
+    el = torch.clamp(inc_edges[nrow] - e0[:, None, None], 0, ew - 1)
+    sl = torch.clamp(src.reshape(nb, eb) - n0[:, None], 0, nw - 1)
+    dl = torch.clamp(dst.reshape(nb, eb) - n0[:, None], 0, nw - 1)
+
+    def one(w_, u_):
+        return pd_window_step(w_, u_, el, isg, params_win, tau_win, sl, dl,
+                              sg, bd, loss=loss, reg=reg, pkeys=pkeys,
+                              klo=klo, block_edges=eb, rho=rho)
+
+    tau_own = tau_win[:, :bv]
+    if iters == 1:
+        w_o, u_o = one(w_win, u_win)
+        out = (w_o[:, :bv].reshape(nb * bv, n), u_o.reshape(nb * eb, n))
+        if compute_residual:
+            # owned dual rows sit at window offset klo*EB
+            u_owned = u_win[:, klo * eb:(klo + 1) * eb]
+            out += (window_residual(w_win[:, :bv], u_owned, w_o[:, :bv],
+                                    u_o, tau_own, sg),)
+        return out
+
+    # nb == 1 (so kn == 1 and the owned dual rows are the whole window)
+    res = torch.zeros((), dtype=torch.float32, device=dev)
+    w_c, u_c = w_win, u_win
+    for _ in range(iters):
+        w_n, u_n = one(w_c, u_c)
+        if compute_residual:
+            res = torch.maximum(res, window_residual(
+                w_c[:, :bv], u_c, w_n[:, :bv], u_n, tau_own, sg))
+        w_c, u_c = w_n, u_n
+    out = (w_c[:, :bv].reshape(bv, n), u_c.reshape(eb, n))
+    return out + (res,) if compute_residual else out

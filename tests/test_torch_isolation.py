@@ -1,0 +1,97 @@
+"""The port stands alone and refuses loudly what it does not run yet.
+
+  * no module of ``src/repro_torch/`` (nor ``chip_smoke.py``) imports
+    ``jax`` or the reference package ``repro``,
+  * entry points default to the CUDA card and raise without one instead
+    of moving to the CPU,
+  * what this slice leaves out raises ``NotImplementedError``.
+"""
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import interop                             # noqa: E402
+from repro_torch.api import Problem, Solver, SolverConfig   # noqa: E402
+from repro_torch.api import get_loss, solve_many, solve_path  # noqa: E402
+from repro_torch.api.backends import get_backend, solve_pallas  # noqa: E402
+from repro_torch.core.graph import build_graph              # noqa: E402
+from repro_torch.data.synthetic import make_sbm_regression  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path) -> set:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_reference(path):
+    assert path.exists(), path
+    bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
+    assert not bad, (path, bad)
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("entry", ["make_sbm_regression", "build_graph",
+                                   "problem_create", "state_from_arrays"])
+def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if entry == "make_sbm_regression":
+            make_sbm_regression(seed=0)
+        elif entry == "build_graph":
+            build_graph(np.array([[0, 1]]), np.ones(1, np.float32), 2)
+        elif entry == "problem_create":
+            ds = make_sbm_regression(seed=0, device="cpu")
+            Problem.create(ds.graph, ds.data, 1e-3)
+        else:
+            interop.state_from_arrays(np.zeros((2, 2)), np.zeros((1, 2)))
+
+
+@pytest.fixture(scope="module")
+def cpu_problem():
+    ds = make_sbm_regression(seed=0, device="cpu")
+    return Problem.create(ds.graph, ds.data, 1e-3, device="cpu")
+
+
+@pytest.mark.parametrize("overrides", [dict(tol=1e-4),
+                                       dict(dtype="bfloat16")])
+@pytest.mark.parametrize("backend", ["pallas", "dense"])
+def test_unported_solver_options_raise(cpu_problem, overrides, backend):
+    cfg = SolverConfig(num_iters=10, fused=True, **overrides)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        if backend == "pallas":
+            solve_pallas(cpu_problem, cfg)
+        else:
+            Solver(cfg.replace(backend="dense")).run(cpu_problem)
+
+
+def test_unported_paths_raise(cpu_problem):
+    for name in ("sharded", "sharded_fused", "federated"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_backend(name)
+    for name in ("lasso", "logistic"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_loss(name)
+    for fn in (solve_path, solve_many):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            fn(cpu_problem)
+    # the unfused pallas path: fused=None resolves to False on the CPU
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Solver(SolverConfig(backend="pallas", num_iters=10)).run(cpu_problem)
