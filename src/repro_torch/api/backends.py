@@ -6,16 +6,20 @@ one :class:`~repro_torch.api.problem.SolveResult`:
 
   * ``dense``  — a Python loop over the dense executor (any device; the
                  yardstick),
-  * ``pallas`` — the fused primal-dual kernel over the edge-blocked
-                 layout (``kernels/pd_step.py``): the CUDA kernel on the
-                 card, its plain version on the CPU.  The name is the
-                 reference's, so one ``SolverConfig`` drives both
-                 packages.
+  * ``pallas`` — the port's kernels; the name is the reference's, so one
+                 ``SolverConfig`` drives both packages.  Fused (the
+                 default on the card): the fused primal-dual kernel over
+                 the edge-blocked layout (``kernels/pd_step.py``).
+                 Unfused: the dense loop with the dual clip through
+                 ``kernels.ops.tv_prox`` (TV regularizer) and the squared
+                 loss's affine prox through ``kernels.ops.batched_affine``.
+                 Each op is the CUDA kernel on the card and its plain
+                 version on the CPU.
 
 The reference's ``sharded``, ``sharded_fused`` and ``federated``
-backends, ``tol`` early stopping, ``dtype="bfloat16"`` storage and the
-unfused ``pallas`` path are not in this slice: each raises
-``NotImplementedError`` naming the ``ROADMAP.md`` item that brings it.
+backends, ``tol`` early stopping and ``dtype="bfloat16"`` storage are not
+in the port yet: each raises ``NotImplementedError`` naming the
+``ROADMAP.md`` item that brings it.
 """
 from __future__ import annotations
 
@@ -25,8 +29,9 @@ from typing import Callable
 
 import torch
 
-from repro_torch.api.losses import Loss
+from repro_torch.api.losses import Loss, SquaredLoss
 from repro_torch.api.problem import Problem, SolveResult, SolverConfig
+from repro_torch.api.regularizers import TotalVariation
 from repro_torch.core.graph import graph_signal_mse, plan_edge_blocks
 from repro_torch.core.losses import NodeData
 from repro_torch.core.partition import gather_padded
@@ -127,15 +132,17 @@ def make_metrics_fn(loss: Loss, reg, graph, data, lam, w_true):
 
 
 def _dense_scan_impl(problem: Problem, w0, u0, w_true, *, num_iters: int,
-                     rho: float, metric_every: int,
+                     rho: float, metric_every: int, clip_fn, affine_fn,
                      record_residual: bool = False):
     """Run Algorithm 1 on the dense executor, recording metrics on a
-    cadence.  Returns ``(w, u, obj_trace, mse_trace, res_trace)``."""
+    cadence, with the kernel hooks ``clip_fn`` / ``affine_fn`` wired into
+    the dual clip and the affine prox.  Returns ``(w, u, obj_trace,
+    mse_trace, res_trace)``."""
     graph, data, lam = problem.graph, problem.data, problem.lam
     loss, reg = problem.loss, problem.regularizer
     tau = graph.primal_stepsizes()
     sigma = graph.dual_stepsizes()
-    prox = loss.make_prox(data, tau)
+    prox = loss.make_prox(data, tau, affine_fn=affine_fn)
     metrics = make_metrics_fn(loss, reg, graph, data, lam, w_true)
     executor = DenseExecutor(graph)
 
@@ -143,7 +150,7 @@ def _dense_scan_impl(problem: Problem, w0, u0, w_true, *, num_iters: int,
         del iters                      # dense blocks advance one step
         w, u = state
         return engine_pd_step(executor, prox, reg, lam, tau, sigma, w, u,
-                              rho=rho)
+                              rho=rho, clip_fn=clip_fn)
 
     residual_fn = None
     if record_residual:
@@ -163,13 +170,13 @@ def _dense_scan_impl(problem: Problem, w0, u0, w_true, *, num_iters: int,
 
 
 def _solve_dense(problem: Problem, config: SolverConfig, *, w0=None, u0=None,
-                 w_true=None) -> SolveResult:
+                 w_true=None, clip_fn=None, affine_fn=None) -> SolveResult:
     _check_config(config)
     w0, u0 = _initial_state(problem, w0, u0)
     w, u, obj, mse, res = _dense_scan_impl(
         problem, w0, u0, w_true, num_iters=config.num_iters,
-        rho=config.rho, metric_every=config.metric_every,
-        record_residual=config.record_residual)
+        rho=config.rho, metric_every=config.metric_every, clip_fn=clip_fn,
+        affine_fn=affine_fn, record_residual=config.record_residual)
     return SolveResult(w=w, u=u, objective=obj,
                        mse=None if w_true is None else mse,
                        lam=problem.lam,
@@ -177,10 +184,30 @@ def _solve_dense(problem: Problem, config: SolverConfig, *, w0=None, u0=None,
                        residual=res)
 
 
+def resolve_kernel_hooks(problem: Problem, config: SolverConfig,
+                         use_pallas: bool):
+    """(clip_fn, affine_fn) for a dense-engine run.
+
+    Caller-supplied hooks from the config always win; the pallas backend
+    fills unset ones with the port's kernels (the dual clip only applies
+    to the TV regularizer, the affine map to the squared loss).
+    """
+    clip_fn, affine_fn = config.clip_fn, config.affine_fn
+    if use_pallas:
+        if clip_fn is None and isinstance(problem.regularizer,
+                                          TotalVariation):
+            clip_fn = ops.tv_prox
+        if affine_fn is None and isinstance(problem.loss, SquaredLoss):
+            affine_fn = ops.batched_affine
+    return clip_fn, affine_fn
+
+
 @register_backend("dense")
 def solve_dense(problem: Problem, config: SolverConfig, *, w0=None, u0=None,
                 w_true=None) -> SolveResult:
-    return _solve_dense(problem, config, w0=w0, u0=u0, w_true=w_true)
+    clip_fn, affine_fn = resolve_kernel_hooks(problem, config, False)
+    return _solve_dense(problem, config, w0=w0, u0=u0, w_true=w_true,
+                        clip_fn=clip_fn, affine_fn=affine_fn)
 
 
 # ---------------------------------------------------------------------------
@@ -220,14 +247,18 @@ def _fused_enabled(problem: Problem, config: SolverConfig) -> bool:
     return problem.device.type == "cuda"
 
 
-def _fused_supported(problem: Problem) -> bool:
+def _fused_supported(problem: Problem, config: SolverConfig) -> bool:
     """The fused step needs windowable prox parameters and an
     edge-elementwise dual resolvent; on the card the loss must also run
-    inside the kernel (``kernel_safe``)."""
+    inside the kernel (``kernel_safe``: lasso and logistic do not yet, so
+    they run the unfused path there, as a loss with ``kernel_safe=False``
+    does on the reference's TPU).  Custom kernel hooks disable fusion
+    (they target the unfused engine)."""
     loss, reg = problem.loss, problem.regularizer
     has_setup = type(loss).prox_setup is not Loss.prox_setup
     kernel_ok = problem.device.type == "cpu" or loss.kernel_safe
-    return has_setup and kernel_ok and reg.fusable
+    return (has_setup and kernel_ok and reg.fusable
+            and config.clip_fn is None and config.affine_fn is None)
 
 
 def _fused_window_cap() -> int:
@@ -257,7 +288,8 @@ def _fused_window_fits(problem: Problem) -> bool:
 
 def _should_fuse(problem: Problem, config: SolverConfig) -> bool:
     """The one fused-dispatch gate."""
-    return (_fused_enabled(problem, config) and _fused_supported(problem)
+    return (_fused_enabled(problem, config)
+            and _fused_supported(problem, config)
             and _fused_window_fits(problem))
 
 
@@ -411,14 +443,21 @@ def _solve_fused(problem: Problem, config: SolverConfig, *, w0=None,
 @register_backend("pallas")
 def solve_pallas(problem: Problem, config: SolverConfig, *, w0=None,
                  u0=None, w_true=None) -> SolveResult:
-    """Fused-kernel backend: one pass per iteration over the edge-blocked
-    graph layout (``kernels/pd_step.py``) for the squared loss with the
-    ``tv``/``tv2`` regularizers.  The unfused path (the ``tv_prox`` and
-    ``batched_affine`` kernels) is not in this slice and raises."""
+    """Kernel backend.
+
+    Default on the card (opt-out via ``fused=False`` / ``REPRO_FUSED=0``):
+    the *fused* primal-dual kernel — one pass per iteration over the
+    edge-blocked graph layout (``kernels/pd_step.py``) — for the squared
+    loss with ``tv``/``tv2`` (on the CPU, its plain version runs every
+    loss).  Otherwise the dense path with the unfused kernels wired in:
+    the dual clip through ``kernels.ops.tv_prox`` (TV regularizer only)
+    and the squared loss's affine prox through
+    ``kernels.ops.batched_affine``; ``config.clip_fn``/``config.affine_fn``
+    override either (and disable fusion).
+    """
     _check_config(config)
     if _should_fuse(problem, config):
         return _solve_fused(problem, config, w0=w0, u0=u0, w_true=w_true)
-    raise NotImplementedError(
-        "the unfused pallas path (tv_prox and batched_affine kernels "
-        "through resolve_kernel_hooks) is not ported yet: ROADMAP.md Open "
-        "items §1 item 7 and §2 items 2-3; use fused=True")
+    clip_fn, affine_fn = resolve_kernel_hooks(problem, config, True)
+    return _solve_dense(problem, config, w0=w0, u0=u0, w_true=w_true,
+                        clip_fn=clip_fn, affine_fn=affine_fn)

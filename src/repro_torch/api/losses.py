@@ -10,9 +10,17 @@ A :class:`Loss` bundles what the engine needs from that choice:
 tensors, every leaf at least 2-D), ``prox_apply`` and ``make_prox`` —
 the interface of ``repro.api.losses``.
 
-This slice ports the squared error (eq. 20, closed-form ridge prox
-eq. 21).  The lasso and logistic losses are registered names that raise
-``NotImplementedError`` until their slice lands.
+Implemented losses (paper §4.1-4.3):
+  * squared error (eq. 20)   -> closed-form batched ridge solve (eq. 21),
+  * Lasso (eq. 22)           -> ISTA inner loop (high-dim m_i << n regime),
+  * logistic (eq. 23)        -> damped-Newton inner loop (no closed form),
+                                solved by the unrolled small-n Cholesky.
+
+``prox_apply`` takes any leading axes (``...``), so the same code runs on
+the dense (V, n) state and on the fused plain version's (B, NW, n)
+windows.  ``kernel_safe`` means the loss's prox runs inside the port's
+CUDA ``fused_pd_step``; only the squared loss's does so far, so on the
+card the lasso and logistic losses run the unfused path.
 """
 from __future__ import annotations
 
@@ -25,15 +33,6 @@ from repro_torch.core.losses import NodeData
 
 LOSSES: dict[str, type] = {}
 
-# registered in the reference, not yet in the port: name -> ROADMAP item
-_PENDING_LOSSES = {
-    "lasso": "ROADMAP.md Open items §1 item 2 (lasso prox) and §2 item 1 "
-             "(the fused kernel's in-kernel lasso prox)",
-    "logistic": "ROADMAP.md Open items §1 item 2 (logistic prox with "
-                "_chol_solve) and §2 item 1 (the fused kernel's in-kernel "
-                "logistic prox)",
-}
-
 
 def register_loss(name: str):
     """Class decorator adding a Loss subclass to the registry."""
@@ -45,16 +44,16 @@ def register_loss(name: str):
 
 
 def get_loss(spec, **kwargs) -> "Loss":
-    """Resolve a Loss instance from an instance or a registry name."""
+    """Resolve a Loss instance from an instance or a registry name.
+
+    Extra keyword arguments configure the loss when ``spec`` is a name
+    (e.g. ``get_loss("lasso", alpha=0.02)``).
+    """
     if isinstance(spec, Loss):
         if kwargs:
             raise TypeError("loss kwargs only apply to registry names")
         return spec
     if isinstance(spec, str):
-        if spec in _PENDING_LOSSES:
-            raise NotImplementedError(
-                f"loss {spec!r} is not ported yet: "
-                f"{_PENDING_LOSSES[spec]}")
         try:
             cls = LOSSES[spec]
         except KeyError:
@@ -62,6 +61,44 @@ def get_loss(spec, **kwargs) -> "Loss":
                 f"unknown loss {spec!r}; registered: {sorted(LOSSES)}")
         return cls(**kwargs)
     raise TypeError(f"loss must be a Loss or a registry name, got {spec!r}")
+
+
+def _soft_threshold(z: torch.Tensor, t) -> torch.Tensor:
+    return torch.sign(z) * torch.clamp(torch.abs(z) - t, min=0.0)
+
+
+def _chol_solve(a: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """Batched SPD solve via an explicit unrolled Cholesky factorization.
+
+    ``a`` (..., n, n) symmetric positive definite, ``rhs`` (..., n) ->
+    (..., n) solving ``a @ z = rhs`` per node.  The feature count n is
+    small and static, so the Cholesky-Banachiewicz recurrence and the two
+    triangular substitutions are Python loops of elementwise arithmetic
+    over the node axes, as in the reference.
+    """
+    n = a.shape[-1]
+    lo = [[None] * n for _ in range(n)]
+    for i in range(n):
+        for j in range(i + 1):
+            s = a[..., i, j]
+            for k in range(j):
+                s = s - lo[i][k] * lo[j][k]
+            lo[i][j] = torch.sqrt(s) if i == j else s / lo[j][j]
+    # forward substitution  L c = rhs
+    c = [None] * n
+    for i in range(n):
+        s = rhs[..., i]
+        for k in range(i):
+            s = s - lo[i][k] * c[k]
+        c[i] = s / lo[i][i]
+    # back substitution  L^T z = c
+    z = [None] * n
+    for i in reversed(range(n)):
+        s = c[i]
+        for k in range(i + 1, n):
+            s = s - lo[k][i] * z[k]
+        z[i] = s / lo[i][i]
+    return torch.stack(z, dim=-1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,20 +123,26 @@ class Loss:
         ``{name: (V, ...)}`` dict (every leaf ``ndim >= 2``)."""
         raise NotImplementedError
 
-    def prox_apply(self, params: dict, v: torch.Tensor) -> torch.Tensor:
-        """Evaluate PU (eq. 18) batched over nodes: (..., V, n) -> same."""
+    def prox_apply(self, params: dict, v: torch.Tensor, *,
+                   affine_fn: Callable | None = None) -> torch.Tensor:
+        """Evaluate PU (eq. 18) batched over nodes: (..., V, n) -> same.
+
+        ``affine_fn(p, v)`` routes affine-map losses through the
+        ``batched_affine`` kernel; iterative losses ignore it.
+        """
         raise NotImplementedError
 
     def prox_param_floats(self, num_samples: int, num_features: int) -> int:
         """Per-node float count of ``prox_setup`` leaves (layout sizing)."""
         raise NotImplementedError
 
-    def make_prox(self, data: NodeData, tau: torch.Tensor) -> Callable:
+    def make_prox(self, data: NodeData, tau: torch.Tensor, *,
+                  affine_fn: Callable | None = None) -> Callable:
         """Batched primal-update operator PU (eq. 18): (V, n) -> (V, n)."""
         params = self.prox_setup(data, tau)
 
         def prox(v: torch.Tensor) -> torch.Tensor:
-            return self.prox_apply(params, v)
+            return self.prox_apply(params, v, affine_fn=affine_fn)
 
         return prox
 
@@ -135,14 +178,121 @@ class SquaredLoss(Loss):
         p = torch.linalg.inv(a)
         b = c * xty
         lab = data.labeled_mask
-        p = torch.where(lab[:, None, None] > 0, p, eye[None])
+        # row-major, as the batched_affine kernel reads it (the batched
+        # inverse on CUDA comes back column-major per matrix)
+        p = torch.where(lab[:, None, None] > 0, p, eye[None]).contiguous()
         b = torch.where(lab[:, None] > 0, b, torch.zeros_like(b))
         return {"p": p, "b": b}
 
-    def prox_apply(self, params, v):
+    def prox_apply(self, params, v, *, affine_fn=None):
         vb = v + params["b"]
+        if affine_fn is not None:
+            return affine_fn(params["p"], vb)
         return torch.einsum("...nk,...k->...n", params["p"], vb)
 
     def prox_param_floats(self, num_samples, num_features):
         n = num_features
         return n * n + n
+
+
+@register_loss("lasso")
+@dataclasses.dataclass(frozen=True)
+class LassoLoss(Loss):
+    """Lasso (paper §4.2, eq. 22) — ISTA inner loop for the m_i << n regime.
+
+    ``alpha`` is the local l1 weight (lambda inside eq. 22; renamed to
+    avoid clashing with the TV strength).  The smooth part has per-node
+    Lipschitz constant L_i = 2 lambda_max(Q_i)/m_i + 1/tau_i; ISTA takes
+    steps 1/L_i and soft-thresholds with alpha/L_i.
+    """
+
+    alpha: float = 0.0
+    num_inner: int = 50
+
+    # the fused CUDA kernel has no ISTA prox yet (ROADMAP.md Open items §2
+    # item 1), so on the card this loss runs the unfused path
+    kernel_safe: ClassVar[bool] = False
+
+    def node_values(self, data, w):
+        return (SquaredLoss().node_values(data, w)
+                + self.alpha * torch.sum(torch.abs(w), dim=1))
+
+    def prox_setup(self, data, tau):
+        xm = data.x * data.sample_mask[..., None]
+        q = torch.einsum("vmn,vmk->vnk", xm, data.x)
+        xty = torch.einsum("vmn,vm->vn", xm, data.y)
+        m = data.counts()
+        # lambda_max via eigvalsh (set-up only; n is small)
+        lam_max = torch.linalg.eigvalsh(q)[:, -1]
+        lips = 2.0 * lam_max / m + 1.0 / tau                  # (V,)
+        return {"q": q, "xty": xty, "m": m[:, None],
+                "step": (1.0 / lips)[:, None], "tau": tau[:, None],
+                "labeled": data.labeled_mask[:, None]}
+
+    def prox_apply(self, params, v, *, affine_fn=None):
+        del affine_fn                       # iterative inner solver
+        q, xty = params["q"], params["xty"]
+        m, step, tau = params["m"], params["step"], params["tau"]
+        z = v
+        for _ in range(self.num_inner):
+            grad = 2.0 * (torch.einsum("...nk,...k->...n", q, z) - xty) / m
+            grad = grad + (z - v) / tau
+            z = _soft_threshold(z - step * grad, self.alpha * step)
+        return torch.where(params["labeled"] > 0, z, v)
+
+    def prox_param_floats(self, num_samples, num_features):
+        n = num_features
+        return n * n + n + 4
+
+
+@register_loss("logistic")
+@dataclasses.dataclass(frozen=True)
+class LogisticLoss(Loss):
+    """Logistic (paper §4.3, eq. 23) — damped-Newton inner loop.
+
+    The objective  L_i(z) + (1/(2 tau_i))||z - v||^2  is smooth and
+    strongly convex; n is small, so a handful of exact Newton steps
+    converge.  The Newton system ``H + I/tau`` is SPD by construction and
+    is solved by the explicit small-n Cholesky (:func:`_chol_solve`).
+    """
+
+    num_inner: int = 8
+
+    # the fused CUDA kernel has no Newton prox yet (ROADMAP.md Open items
+    # §2 item 1), so on the card this loss runs the unfused path
+    kernel_safe: ClassVar[bool] = False
+
+    def node_values(self, data, w):
+        logits = torch.einsum("vmn,vn->vm", data.x, w)
+        # numerically-stable BCE with logits
+        per = (torch.clamp(logits, min=0.0) - logits * data.y
+               + torch.log1p(torch.exp(-torch.abs(logits))))
+        return torch.sum(per * data.sample_mask, dim=1) / data.counts()
+
+    def prox_setup(self, data, tau):
+        return {"x": data.x, "y": data.y, "mask": data.sample_mask,
+                "m": data.counts()[:, None], "tau": tau[:, None],
+                "labeled": data.labeled_mask[:, None]}
+
+    def prox_apply(self, params, v, *, affine_fn=None):
+        del affine_fn                       # iterative inner solver
+        x, y, mask = params["x"], params["y"], params["mask"]
+        m, tau = params["m"], params["tau"]
+        n = v.shape[-1]
+        eye = torch.eye(n, dtype=v.dtype, device=v.device)
+        z = v
+        for _ in range(self.num_inner):
+            logits = torch.einsum("...mn,...n->...m", x, z)
+            s = torch.sigmoid(logits)
+            r = (s - y) * mask                                   # (..., m)
+            grad = torch.einsum("...m,...mn->...n", r, x) / m
+            grad = grad + (z - v) / tau
+            d = (s * (1 - s)) * mask                             # (..., m)
+            hess = (torch.einsum("...m,...mn,...mk->...nk", d, x, x)
+                    / m[..., None])
+            hess = hess + eye / tau[..., None]
+            z = z - _chol_solve(hess, grad)
+        return torch.where(params["labeled"] > 0, z, v)
+
+    def prox_param_floats(self, num_samples, num_features):
+        return num_samples * (num_features + 2) + 3

@@ -10,6 +10,7 @@ on one device.  :class:`SolverConfig` carries the *how*, and
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
@@ -84,13 +85,22 @@ class SolverConfig:
 
     Backend dispatch:
       backend:     "dense" (Python loop over the dense executor) or
-                   "pallas" (the fused primal-dual kernel over the
-                   edge-blocked layout; the name is the reference's).
-      fused:       pallas only.  None resolves to True when the problem
-                   lives on CUDA (the card takes the TPU's role), False
-                   elsewhere; ``REPRO_FUSED`` (env) overrides the
-                   default either way.  The unfused pallas path is not
-                   in this slice and raises ``NotImplementedError``.
+                   "pallas" (the port's kernels; the name is the
+                   reference's).
+      fused:       pallas only — run the fused primal-dual kernel over
+                   the edge-blocked layout instead of the dense engine
+                   with the ``tv_prox`` / ``batched_affine`` kernels
+                   wired in (the unfused path).  None resolves to True
+                   when the problem lives on CUDA (the card takes the
+                   TPU's role), False elsewhere; ``REPRO_FUSED`` (env)
+                   overrides the default either way.  Falls back to the
+                   unfused path for a loss whose prox the CUDA kernel
+                   does not run (lasso, logistic) or when a kernel hook
+                   is set.
+      clip_fn / affine_fn: custom kernel hooks for the dual clip and the
+                   affine primal update (dense/pallas backends; the
+                   pallas backend fills unset hooks with the port's
+                   kernels, and a set hook disables fusion).
 
     Precision: ``dtype`` "float32" only in this slice; "bfloat16"
     storage raises ``NotImplementedError``.
@@ -109,6 +119,11 @@ class SolverConfig:
     # backend dispatch
     backend: str = "dense"
     fused: bool | None = None
+    # custom kernel hooks
+    clip_fn: Any = dataclasses.field(default=None, compare=False,
+                                     repr=False)
+    affine_fn: Any = dataclasses.field(default=None, compare=False,
+                                       repr=False)
     # eq.-11 certificate on the result (disabled internally for
     # warm-phase solves whose result is discarded)
     compute_diagnostics: bool = True

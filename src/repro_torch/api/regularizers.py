@@ -9,7 +9,7 @@ A :class:`Regularizer` supplies the three pieces Algorithm 1 needs:
 from __future__ import annotations
 
 import dataclasses
-from typing import ClassVar
+from typing import Callable, ClassVar
 
 import torch
 
@@ -44,8 +44,12 @@ def get_regularizer(spec, **kwargs) -> "Regularizer":
         f"regularizer must be a Regularizer or a registry name, got {spec!r}")
 
 
-def _clip(u: torch.Tensor, bound: torch.Tensor) -> torch.Tensor:
-    """Edge-wise clip to +-bound (``jnp.clip(u, -b, b)``)."""
+def _clip(u: torch.Tensor, bound: torch.Tensor,
+          clip_fn: Callable | None = None) -> torch.Tensor:
+    """Edge-wise clip to +-bound (``jnp.clip(u, -b, b)``); ``clip_fn(u,
+    bound)`` routes it through a kernel (``kernels.ops.tv_prox``)."""
+    if clip_fn is not None:
+        return clip_fn(u, bound)
     b = _col(bound)
     return torch.minimum(torch.maximum(u, -b), b)
 
@@ -67,11 +71,13 @@ class Regularizer:
     def value(self, graph, w: torch.Tensor, lam) -> torch.Tensor:
         raise NotImplementedError
 
-    def dual_prox(self, u: torch.Tensor, graph, lam, sigma) -> torch.Tensor:
+    def dual_prox(self, u: torch.Tensor, graph, lam, sigma, *,
+                  clip_fn: Callable | None = None) -> torch.Tensor:
         """Resolvent of sigma * dg* at ``u`` (dual update, step 10)."""
         raise NotImplementedError
 
-    def project_dual(self, u: torch.Tensor, graph, lam) -> torch.Tensor:
+    def project_dual(self, u: torch.Tensor, graph, lam, *,
+                     clip_fn: Callable | None = None) -> torch.Tensor:
         """Projection onto dom g* (identity when unbounded)."""
         return u
 
@@ -88,7 +94,8 @@ class TotalVariation(Regularizer):
 
     g* is the indicator of the box {|u_j^(e)| <= lam A_e}, so both the
     dual prox and the dual projection are the edge-wise clip
-    T^(lam A_e) (Algorithm 1 step 10).
+    T^(lam A_e) (Algorithm 1 step 10).  ``clip_fn(u, bound)`` may route
+    it through the ``tv_prox`` kernel.
     """
 
     fusable: ClassVar[bool] = True
@@ -96,11 +103,11 @@ class TotalVariation(Regularizer):
     def value(self, graph, w, lam):
         return lam * graph.total_variation(w)
 
-    def dual_prox(self, u, graph, lam, sigma):
-        return _clip(u, lam * graph.weights)
+    def dual_prox(self, u, graph, lam, sigma, *, clip_fn=None):
+        return _clip(u, lam * graph.weights, clip_fn)
 
-    def project_dual(self, u, graph, lam):
-        return _clip(u, lam * graph.weights)
+    def project_dual(self, u, graph, lam, *, clip_fn=None):
+        return _clip(u, lam * graph.weights, clip_fn)
 
     def dual_infeasibility(self, u, graph, lam):
         return torch.max(torch.abs(u) - lam * graph.weights[:, None])
@@ -122,6 +129,7 @@ class SquaredTV(Regularizer):
         d = graph.incidence_apply(w)
         return 0.5 * lam * torch.sum(graph.weights * torch.sum(d * d, dim=1))
 
-    def dual_prox(self, u, graph, lam, sigma):
+    def dual_prox(self, u, graph, lam, sigma, *, clip_fn=None):
+        del clip_fn                         # a scaling, not a clip
         la = _col(lam * graph.weights)
         return u * (la / (la + _col(sigma)))

@@ -556,6 +556,76 @@ def chain_graph(rng: np.random.Generator, num_nodes: int,
                        num_nodes, device=device)
 
 
+def grid_graph(rng: np.random.Generator, rows: int, cols: int,
+               weight: float = 1.0, device=None) -> EmpiricalGraph:
+    """2-D lattice with 4-neighbour connectivity (image-denoising TV)."""
+    del rng  # deterministic family; accepted for the uniform signature
+    idx = np.arange(rows * cols).reshape(rows, cols)
+    right = np.stack([idx[:, :-1].ravel(), idx[:, 1:].ravel()], axis=1)
+    down = np.stack([idx[:-1, :].ravel(), idx[1:, :].ravel()], axis=1)
+    edges = np.concatenate([right, down], axis=0)
+    return build_graph(edges, np.full(len(edges), weight, np.float32),
+                       rows * cols, device=device)
+
+
+def watts_strogatz_graph(rng: np.random.Generator, num_nodes: int,
+                         k: int = 4, p_rewire: float = 0.1,
+                         weight: float = 1.0, device=None) -> EmpiricalGraph:
+    """Watts-Strogatz small world: ring lattice (k/2 neighbours per side)
+    with each lattice edge rewired to a random endpoint with prob p_rewire.
+
+    Rewiring keeps the source endpoint, never creates self-loops, and lets
+    ``build_graph`` drop the (rare) duplicate edges.
+    """
+    if k % 2 or k <= 0:
+        raise ValueError(f"k must be a positive even integer, got {k}")
+    src, dst = [], []
+    for hop in range(1, k // 2 + 1):
+        i = np.arange(num_nodes)
+        j = (i + hop) % num_nodes
+        src.append(i)
+        dst.append(j)
+    src = np.concatenate(src)
+    dst = np.concatenate(dst)
+    rewire = rng.random(len(src)) < p_rewire
+    new_dst = rng.integers(0, num_nodes, size=len(src))
+    # avoid self-loops on rewired edges (shift by one when they collide)
+    new_dst = np.where(new_dst == src, (new_dst + 1) % num_nodes, new_dst)
+    dst = np.where(rewire, new_dst, dst)
+    edges = np.stack([src, dst], axis=1)
+    return build_graph(edges, np.full(len(edges), weight, np.float32),
+                       num_nodes, device=device)
+
+
+def barabasi_albert_graph(rng: np.random.Generator, num_nodes: int,
+                          m: int = 2, weight: float = 1.0,
+                          device=None) -> EmpiricalGraph:
+    """Barabasi-Albert preferential attachment: hub-dominated degrees.
+
+    Starts from a complete seed graph on m+1 nodes; each arriving node
+    attaches to m distinct existing nodes sampled proportionally to degree
+    (sampling from the repeated-endpoints list).  The draws and the
+    ``set`` iteration order are the reference's, so the edge list is too.
+    """
+    if not 1 <= m < num_nodes:
+        raise ValueError(f"need 1 <= m < num_nodes, got m={m}, V={num_nodes}")
+    seed_n = m + 1
+    edges = [(i, j) for i in range(seed_n) for j in range(i + 1, seed_n)]
+    # flat list of edge endpoints: sampling uniformly from it is sampling
+    # nodes proportionally to degree
+    endpoints = [v for e in edges for v in e]
+    for v in range(seed_n, num_nodes):
+        targets: set[int] = set()
+        while len(targets) < m:
+            targets.add(int(endpoints[rng.integers(0, len(endpoints))]))
+        for t in targets:
+            edges.append((t, v))
+            endpoints.extend((t, v))
+    edges = np.asarray(edges, dtype=np.int64)
+    return build_graph(edges, np.full(len(edges), weight, np.float32),
+                       num_nodes, device=device)
+
+
 def graph_signal_mse(w_hat: torch.Tensor, w_true: torch.Tensor,
                      mask: torch.Tensor) -> torch.Tensor:
     """Paper eq. (24): (1/|V|) sum_{i in mask} ||wbar_i - what_i||_2^2."""

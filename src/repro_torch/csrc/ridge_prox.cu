@@ -1,0 +1,78 @@
+// Batched node-wise affine map (squared-loss primal update, paper eq. 21)
+// for Hopper.
+//
+// Replaces the Pallas TPU kernel src/repro/kernels/ridge_prox.py:
+// batched_affine (body _ridge_kernel): out[i, r] = sum_k p[i, r, k] v[i, k]
+// for p (V, n, n), v (V, n), float32, summed in float32 with k ascending.
+// Its plain version is src/repro_torch/kernels/ref.py:batched_affine_ref.
+//
+// What bounds it: bytes.  It reads p and v once and writes out once,
+// 4 V (n^2 + 2 n) bytes for 2 V n^2 float operations: half an operation
+// per byte, far below the card's float rate.  At the unfused 1M-node solve
+// (V = 1M, n = 2) that is 32 MB, 0.0096 ms at 3.35 TB/s; launch latency
+// is of the same order.
+//
+// Design.  One thread per output element (i, r) in a grid-stride loop,
+// with n a runtime value of any size (the JAX package's tests go to
+// n = 32).  Thread (i, r) reads the row p[i, r, :], which starts where
+// thread (i, r - 1)'s ends, so a warp reads one contiguous stretch of p
+// (for small n its loads coalesce); v[i, :] is shared by the n threads of
+// a node.  The TPU kernel runs this on the MXU per 256-node tile; at
+// n = 2..32 there is nothing for Hopper's tensor cores to do.  Later work:
+// 16-byte vector loads, and folding this map into a kernel that also forms
+// v = w - tau D^T u + b, which would remove one (V, n) round trip through
+// device memory per iteration.
+//
+// Build: src/repro_torch/kernels/_build.py (nvcc -gencode
+// arch=compute_90a,code=sm_90a -O3 -Xcompiler -fPIC, linked with the other
+// sources into one shared library); plain C entry point, loaded with
+// ctypes.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+template <typename Idx>
+__global__ void __launch_bounds__(kThreads)
+batched_affine_kernel(const float* __restrict__ p,
+                      const float* __restrict__ v, float* __restrict__ out,
+                      Idx total, Idx n) {
+  const Idx stride = (Idx)gridDim.x * blockDim.x;
+  for (Idx i = (Idx)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += stride) {
+    const float* row = p + i * n;        // p[node, r, :], i = node * n + r
+    const float* vi = v + (i / n) * n;   // v[node, :]
+    float acc = 0.0f;
+    for (Idx k = 0; k < n; ++k) acc = fmaf(row[k], vi[k], acc);
+    out[i] = acc;
+  }
+}
+
+}  // namespace
+
+extern "C" int batched_affine_launch(const float* p, const float* v,
+                                     float* out, long long num_nodes, int n,
+                                     void* stream) {
+  if (num_nodes <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long total = num_nodes * n;
+  long long blocks = (total + kThreads - 1) / kThreads;
+  const long long cap = (long long)sms * (2048 / kThreads);  // one full wave
+  if (blocks > cap) blocks = cap;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // p has total * n elements: the index type must hold that offset
+  if (total * n < (1LL << 31))
+    batched_affine_kernel<unsigned><<<(unsigned)blocks, kThreads, 0, s>>>(
+        p, v, out, (unsigned)total, (unsigned)n);
+  else
+    batched_affine_kernel<unsigned long long>
+        <<<(unsigned)blocks, kThreads, 0, s>>>(
+            p, v, out, (unsigned long long)total, (unsigned long long)n);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,10 +1,12 @@
-"""Synthetic networked data: the paper's §5 SBM setup + a generic builder.
+"""Synthetic networked data: the paper's §5 SBM setup + generic builders.
 
 The §5 reference instance: SBM empirical graph with two clusters
 |C1| = |C2| = 150, p_in = 1/2; each node holds m_i = 5 data points with
 features x ~ N(0, I_2) and noiseless labels y = x^T wbar^(i),
 wbar = (2,2) in C1 and (-2,2) in C2.  A training set M of 30
-randomly-selected nodes is labeled.
+randomly-selected nodes is labeled.  :func:`make_regression_data` and
+:func:`make_classification_data` attach local datasets to any graph (the
+scenario zoo, ``repro_torch.scenarios``, builds on them).
 
 All randomness is numpy, drawn in the reference's order, so both
 packages build bit-identical datasets from one seed.
@@ -79,6 +81,42 @@ def make_regression_data(
     )
 
 
+def make_classification_data(
+    rng: np.random.Generator,
+    graph: EmpiricalGraph,
+    w_true: np.ndarray,
+    samples_per_node: int = 8,
+    num_labeled: int = 20,
+    clusters: np.ndarray | None = None,
+) -> NetworkedDataset:
+    """Local logistic-classification datasets on an arbitrary graph.
+
+    Binary labels y ~ Bernoulli(sigmoid(x^T wbar^(i))) for the §4.3
+    logistic loss.  The tensors go to the graph's device.
+    """
+    V = graph.num_nodes
+    dev = graph.device
+    w_true = np.asarray(w_true, dtype=np.float32)
+    n = w_true.shape[1]
+    x = rng.standard_normal((V, samples_per_node, n)).astype(np.float32)
+    logits = np.einsum("vmn,vn->vm", x, w_true)
+    y = (rng.random(logits.shape) < 1.0 / (1.0 + np.exp(-logits))).astype(
+        np.float32)
+    labeled, mask = _labeled_mask(rng, V, num_labeled)
+    data = NodeData(
+        x=torch.from_numpy(x).to(dev), y=torch.from_numpy(y).to(dev),
+        sample_mask=torch.ones((V, samples_per_node), dtype=torch.float32,
+                               device=dev),
+        labeled_mask=torch.from_numpy(mask).to(dev),
+    )
+    return NetworkedDataset(
+        graph=graph, data=data, w_true=torch.from_numpy(w_true).to(dev),
+        clusters=(np.zeros(V, np.int64) if clusters is None
+                  else np.asarray(clusters)),
+        labeled_nodes=labeled,
+    )
+
+
 def make_sbm_regression(
     seed: int = 0,
     cluster_sizes=(150, 150),
@@ -107,3 +145,25 @@ def make_sbm_regression(
         rng, graph, cluster_weights[assign],
         samples_per_node=samples_per_node, num_labeled=num_labeled,
         noise_scale=label_noise, clusters=assign)
+
+
+def make_classification_sbm(
+    seed: int = 0,
+    cluster_sizes=(100, 100),
+    p_in: float = 0.5,
+    p_out: float = 1e-3,
+    samples_per_node: int = 8,
+    num_features: int = 2,
+    num_labeled: int = 20,
+    device=None,
+) -> NetworkedDataset:
+    """Binary-label variant for the logistic loss (paper §4.3)."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    graph, assign = sbm_graph(rng, cluster_sizes, p_in, p_out, device=dev)
+    base = np.array([[3.0, 3.0], [-3.0, 3.0]])
+    if num_features != 2 or len(cluster_sizes) > 2:
+        base = rng.normal(size=(len(cluster_sizes), num_features)) * 3.0
+    return make_classification_data(
+        rng, graph, base[assign], samples_per_node=samples_per_node,
+        num_labeled=num_labeled, clusters=assign)

@@ -62,13 +62,16 @@ class GraphExecutor(Protocol):
 
 def pd_step(executor: GraphExecutor, prox: Callable, regularizer, lam,
             tau: torch.Tensor, sigma: torch.Tensor, w: torch.Tensor,
-            u: torch.Tensor, *, rho: float = 1.0):
+            u: torch.Tensor, *, rho: float = 1.0,
+            clip_fn: Callable | None = None):
     """One primal-dual step — eqs. 14-15.
 
     primal (eq. 17):  w+ = PU(w - T D^T u)
     dual  (step 10):  u+ = prox_{sigma dg*}(u + Sigma D (2 w+ - w))
     KM relaxation:    x  <- x + rho (x+ - x)  (duals re-projected)
 
+    ``clip_fn`` routes the dual resolvent through a kernel; the
+    relaxation's re-projection runs the plain clip, as in the reference.
     Returns ``(w_new, u_new)`` with ``u_new`` over the executor's owned
     edges.
     """
@@ -79,7 +82,7 @@ def pd_step(executor: GraphExecutor, prox: Callable, regularizer, lam,
     dw = executor.edge_diff(2.0 * w_new - w)
     u_own = executor.owned_duals(u)
     u_new = regularizer.dual_prox(u_own + sigma_c * dw, executor, lam,
-                                  sigma)
+                                  sigma, clip_fn=clip_fn)
     if rho != 1.0:
         w_new = w + rho * (w_new - w)
         u_new = regularizer.project_dual(

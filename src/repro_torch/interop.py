@@ -59,15 +59,17 @@ def layout_from_arrays(fields: dict, device=None) -> EdgeBlockLayout:
 
 
 def problem_from_arrays(graph: dict, data: dict, lam: float = 1e-3, *,
-                        loss="squared", regularizer="tv",
-                        device=None) -> Problem:
+                        loss="squared", regularizer="tv", device=None,
+                        **loss_kwargs) -> Problem:
     """A :class:`Problem` from the graph's and the data's arrays by field
     name (``graph`` as :func:`graph_from_arrays` takes them, ``data`` as
-    :func:`node_data_from_arrays`)."""
+    :func:`node_data_from_arrays`); ``loss_kwargs`` configure a loss
+    given by name (e.g. ``alpha`` and ``num_inner`` of the lasso)."""
     dev = resolve_device(device)
     return Problem.create(graph_from_arrays(**graph, device=dev),
                           node_data_from_arrays(**data, device=dev), lam,
-                          loss=loss, regularizer=regularizer, device=dev)
+                          loss=loss, regularizer=regularizer, device=dev,
+                          **loss_kwargs)
 
 
 def state_from_arrays(w, u, device=None) -> tuple[torch.Tensor,

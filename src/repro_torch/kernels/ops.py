@@ -8,6 +8,24 @@ from __future__ import annotations
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.pd_step import fused_pd_step as _fused_pd_step
+from repro_torch.kernels.ridge_prox import batched_affine as _affine
+from repro_torch.kernels.tv_prox import tv_prox as _tv_prox
+
+
+def tv_prox(u, bound):
+    """Edge-wise dual clip (Algorithm 1 step 10): each row of ``u``
+    (E, n) to +-``bound`` (E,) — the CUDA kernel for tensors on the card,
+    the plain version for tensors on the CPU."""
+    fn = _ref.tv_prox_ref if u.device.type == "cpu" else _tv_prox
+    return fn(u, bound)
+
+
+def batched_affine(p, v):
+    """Node-wise ridge primal update w_i = P_i v_i (paper eq. 21) for
+    ``p`` (V, n, n), ``v`` (V, n) — the CUDA kernel for tensors on the
+    card, the plain version for tensors on the CPU."""
+    fn = _ref.batched_affine_ref if v.device.type == "cpu" else _affine
+    return fn(p, v)
 
 
 def pd_step(w_store, u_store, inc_edges, inc_signs, params, tau, src, dst,

@@ -9,11 +9,9 @@ cooperative launch; its source note says what bounds it (bytes) and how
 the design answers that.  :func:`kernels.ref.fused_pd_step_ref` is its
 plain version.
 
-Build: on first use the source is compiled with ``nvcc`` for ``sm_90a``
-into a shared library with a plain C entry point under
-``build/repro_torch_kernels/`` at the repository root (named by a hash
-of the source and flags, so an edited source rebuilds), and loaded with
-``ctypes``.  Nothing is built or loaded at import.
+Build: ``kernels/_build.py`` compiles it with the port's other CUDA
+sources into one shared library on first use; nothing is built or loaded
+at import.
 
 This wrapper takes CUDA tensors only and raises on anything it does not
 take; ``kernels.ops.pd_step`` sends CPU tensors to the plain version.
@@ -22,92 +20,17 @@ take; ``kernels.ops.pd_step`` sends CPU tensors to the plain version.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "pd_step.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
-    "repro_torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+from repro_torch.kernels import _build
+from repro_torch.kernels._build import check_tensor as _check
+
 MAX_FEATURES = 4           # the kernel's widest per-thread register tile
 
-_LIB: ctypes.CDLL | None = None
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(home) / "bin" / "nvcc"
-    if path.exists():
-        return str(path)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the fused_pd_step kernel is "
-                           "built on a machine with the CUDA toolkit")
-    return found
-
-
-def build(verbose: bool = False) -> tuple[Path, str]:
-    """Compile the kernel library if it is not built yet.
-
-    Returns ``(library path, compiler output)``; ``verbose`` adds
-    ``-Xptxas -v`` (registers, shared memory and spills per kernel) and
-    forces a rebuild so the output is there to read.
-    """
-    src = _SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / f"pd_step-{key[:16]}.so"
-    if lib.exists() and not verbose:
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    extra = ("-Xptxas", "-v") if verbose else ()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, *extra, "-o", tmp, str(_SOURCE)],
-            capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib, proc.stdout + proc.stderr
-
-
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        path, _ = build()
-        lib = ctypes.CDLL(str(path))
-        fn = lib.fused_pd_step_launch
-        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = ([ptr] * 15 + [i64] * 4 + [i32] * 3
-                       + [ctypes.c_float] + [i32] * 3 + [ptr])
-        fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
-
-
-def _check(name: str, t: torch.Tensor, shape: tuple, dtype: torch.dtype,
-           device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+_PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_ARGTYPES = ([_PTR] * 15 + [_I64] * 4 + [_I32] * 3 + [ctypes.c_float]
+             + [_I32] * 3 + [_PTR])
 
 
 def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
@@ -182,7 +105,7 @@ def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
     ptrs = (w_store, u_store, inc_edges, inc_signs, b, p, tau, src, dst,
             sigma, la, w_new, u_new, z, res)
     with torch.cuda.device(device):
-        err = _lib().fused_pd_step_launch(
+        err = _build.entry("fused_pd_step_launch", _ARGTYPES)(
             *(t.data_ptr() for t in ptrs), nb * bv, nb * eb, klo * eb,
             u_store.shape[0], n, max_deg, reg_kind, float(rho),
             int(rho != 1.0), int(iters), int(compute_residual), stream)

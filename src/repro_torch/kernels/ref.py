@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the port's kernels.
 
 Each function states what the matching kernel computes, runs on any
-device, and is what a kernel wrapper uses for a tensor on the CPU.  The
+device, and is what ``kernels.ops`` runs for a tensor on the CPU.  The
 fused primal-dual window step is not restated here: it is the canonical
 :func:`repro_torch.engine.step.pd_step` evaluated through a
 :class:`repro_torch.engine.executors.WindowExecutor`, as in the
@@ -13,6 +13,23 @@ import torch
 
 from repro_torch.engine.executors import WindowExecutor
 from repro_torch.engine.step import pd_step as _engine_pd_step
+
+
+def tv_prox_ref(u: torch.Tensor, bound: torch.Tensor) -> torch.Tensor:
+    """Edge-wise dual clipping T^(lambda A_e) (paper Algorithm 1, step 10).
+
+    u: (E, n) dual edge signal; bound: (E,) per-edge clip level lambda*A_e.
+    """
+    b = bound[:, None]
+    return torch.clamp(u, -b, b)
+
+
+def batched_affine_ref(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Node-wise primal ridge update w_i = P_i @ v_i (paper eq. 21).
+
+    p: (V, n, n); v: (V, n) (already includes the +b_i shift).
+    """
+    return torch.einsum("vnk,vk->vn", p, v)
 
 
 def pd_window_step(w_win: torch.Tensor, u_win: torch.Tensor,

@@ -54,7 +54,8 @@ def _clustered_6000(mod, seed=0):
 
 
 @pytest.mark.parametrize("family", ["sbm", "sbm_sparse", "chain",
-                                    "build_graph"])
+                                    "build_graph", "grid", "watts_strogatz",
+                                    "barabasi_albert"])
 def test_generators_match_reference(family):
     def make(mod):
         rng = np.random.default_rng(7)
@@ -66,6 +67,13 @@ def test_generators_match_reference(family):
                                         **kw)[0]
         if family == "chain":
             return mod.chain_graph(rng, 57, weight=0.5, **kw)
+        if family == "grid":
+            return mod.grid_graph(rng, 7, 9, weight=0.5, **kw)
+        if family == "watts_strogatz":
+            return mod.watts_strogatz_graph(rng, 83, k=6, p_rewire=0.2,
+                                            **kw)
+        if family == "barabasi_albert":
+            return mod.barabasi_albert_graph(rng, 120, m=3, **kw)
         edges = rng.integers(0, 90, size=(400, 2))
         edges = edges[edges[:, 0] != edges[:, 1]]
         weights = rng.random(len(edges)).astype(np.float32)

@@ -16,7 +16,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import interop                             # noqa: E402
 from repro_torch.api import Problem, Solver, SolverConfig   # noqa: E402
-from repro_torch.api import get_loss, solve_many, solve_path  # noqa: E402
+from repro_torch.api import solve_many, solve_path          # noqa: E402
 from repro_torch.api.backends import get_backend, solve_pallas  # noqa: E402
 from repro_torch.core.graph import build_graph              # noqa: E402
 from repro_torch.data.synthetic import make_sbm_regression  # noqa: E402
@@ -86,12 +86,6 @@ def test_unported_paths_raise(cpu_problem):
     for name in ("sharded", "sharded_fused", "federated"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_backend(name)
-    for name in ("lasso", "logistic"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_loss(name)
     for fn in (solve_path, solve_many):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fn(cpu_problem)
-    # the unfused pallas path: fused=None resolves to False on the CPU
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Solver(SolverConfig(backend="pallas", num_iters=10)).run(cpu_problem)

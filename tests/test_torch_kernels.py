@@ -1,12 +1,15 @@
-"""The fused primal-dual step: port against reference, and kernel against
-its plain version.
+"""The port's kernels: port against reference, and kernel against its
+plain version.
 
 On the CPU the port's ``fused_pd_step_ref`` is held against the
 reference's Pallas kernel in interpret mode and against the reference's
 jnp ``fused_pd_step_ref``, on the storage shapes of
 ``tests/test_kernels.py`` (rtol = atol = 1e-6, the reference suite's own:
-the two frameworks sum the D^T u gather in another order).  The CUDA
-kernel itself runs only on the card (``-m cuda``).
+the two frameworks sum the D^T u gather in another order).  The plain
+``tv_prox`` and ``batched_affine`` (and ``ops`` on CPU tensors) are held
+against the reference's interpret-mode kernels at that suite's
+tolerances (1e-6 and 1e-5).  The CUDA kernels themselves run only on the
+card (``-m cuda``).
 """
 import numpy as np
 import pytest
@@ -18,6 +21,8 @@ from repro_torch.api.regularizers import SquaredTV, TotalVariation  # noqa
 from repro_torch.core.graph import plan_edge_blocks, sbm_graph  # noqa: E402
 from repro_torch.kernels import ops, ref                    # noqa: E402
 from repro_torch.kernels.pd_step import fused_pd_step       # noqa: E402
+from repro_torch.kernels.ridge_prox import batched_affine   # noqa: E402
+from repro_torch.kernels.tv_prox import tv_prox             # noqa: E402
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 REGS = {"tv": TotalVariation(), "tv2": SquaredTV()}
@@ -167,3 +172,99 @@ def test_cuda_kernel_matches_plain_version(v, n, bv, rho, reg):
     for o, w in zip(got, want):
         np.testing.assert_allclose(o.cpu().numpy(), w.cpu().numpy(),
                                    rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# tv_prox and batched_affine (the unfused pallas path's kernels)
+# ---------------------------------------------------------------------------
+TV_SHAPES = [(7, 2), (512, 2), (1000, 16), (33, 5), (1, 1), (65, 3)]
+AFFINE_SHAPES = [(300, 2), (64, 8), (1000, 32), (13, 3), (1, 1), (65, 3)]
+
+
+def _tv_arrays(e, n, seed=0):
+    """u drawn from twice the box scale, so about half the entries clip."""
+    rng = np.random.default_rng(seed)
+    u = (2.0 * rng.standard_normal((e, n))).astype(np.float32)
+    bound = np.abs(rng.standard_normal(e)).astype(np.float32)
+    return u, bound
+
+
+def _affine_arrays(v, n, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((v, n, n)).astype(np.float32),
+            rng.standard_normal((v, n)).astype(np.float32))
+
+
+@pytest.mark.parametrize("e,n", TV_SHAPES)
+def test_tv_prox_matches_reference_kernel(e, n):
+    from repro.kernels.tv_prox import tv_prox as j_tv_prox
+    u, bound = _tv_arrays(e, n, seed=e)
+    jnp = _reference()["jnp"]
+    want = np.asarray(j_tv_prox(jnp.asarray(u), jnp.asarray(bound),
+                                interpret=True, block_e=64))
+    tu, tb = torch.from_numpy(u), torch.from_numpy(bound)
+    for got in (ref.tv_prox_ref(tu, tb), ops.tv_prox(tu, tb)):
+        assert got.shape == (e, n) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("v,n", AFFINE_SHAPES)
+def test_batched_affine_matches_reference_kernel(v, n):
+    from repro.kernels.ridge_prox import batched_affine as j_affine
+    p, x = _affine_arrays(v, n, seed=v)
+    jnp = _reference()["jnp"]
+    want = np.asarray(j_affine(jnp.asarray(p), jnp.asarray(x),
+                               interpret=True, block_v=64))
+    tp, tx = torch.from_numpy(p), torch.from_numpy(x)
+    for got in (ref.batched_affine_ref(tp, tx), ops.batched_affine(tp, tx)):
+        assert got.shape == (v, n) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_unfused_kernel_wrappers_refuse_cpu_tensors():
+    """``ops`` routes CPU tensors to the plain versions and counts no
+    launch; the kernel wrappers themselves refuse CPU tensors."""
+    u, bound = (torch.from_numpy(a) for a in _tv_arrays(9, 2))
+    p, x = (torch.from_numpy(a) for a in _affine_arrays(9, 2))
+    before = (tv_prox.launches, batched_affine.launches)
+    assert torch.equal(ops.tv_prox(u, bound), ref.tv_prox_ref(u, bound))
+    assert torch.equal(ops.batched_affine(p, x),
+                       ref.batched_affine_ref(p, x))
+    assert (tv_prox.launches, batched_affine.launches) == before
+    with pytest.raises(ValueError, match="CUDA"):
+        tv_prox(u, bound)
+    with pytest.raises(ValueError, match="CUDA"):
+        batched_affine(p, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,n", TV_SHAPES + [(0, 2)])
+def test_cuda_tv_prox_matches_plain_version(e, n):
+    """Bit for bit: the kernel's fminf(fmaxf(u, -b), b) is torch.clamp."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    u, bound = (torch.from_numpy(a).cuda() for a in _tv_arrays(e, n, seed=e))
+    before = tv_prox.launches
+    got = tv_prox(u, bound)
+    want = ref.tv_prox_ref(u, bound)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert tv_prox.launches == before + (e > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,n", AFFINE_SHAPES + [(0, 2)])
+def test_cuda_batched_affine_matches_plain_version(v, n):
+    """Within 1e-5: the kernel sums k ascending with fused multiply-adds,
+    the plain einsum in its own order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    p, x = (torch.from_numpy(a).cuda() for a in _affine_arrays(v, n, seed=v))
+    before = batched_affine.launches
+    got = batched_affine(p, x)
+    want = ref.batched_affine_ref(p, x)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    assert batched_affine.launches == before + (v > 0)

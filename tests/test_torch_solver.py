@@ -15,9 +15,11 @@ from repro.api import Problem as JProblem                   # noqa: E402
 from repro.api import Solver as JSolver                     # noqa: E402
 from repro.api import SolverConfig as JConfig               # noqa: E402
 from repro.data.synthetic import make_sbm_regression as j_make  # noqa: E402
-from repro_torch.api import Solver, SolverConfig            # noqa: E402
+from repro_torch.api import Problem, Solver, SolverConfig   # noqa: E402
+from repro_torch.api import backends                        # noqa: E402
 from repro_torch.data.synthetic import make_sbm_regression  # noqa: E402
 from repro_torch.interop import problem_from_arrays, state_from_arrays  # noqa
+from repro_torch.kernels import ops, ref                    # noqa: E402
 
 GRAPH_FIELDS = ("src", "dst", "weights", "inc_edges", "inc_signs")
 DATA_FIELDS = ("x", "y", "sample_mask", "labeled_mask")
@@ -33,6 +35,10 @@ CASES = {
     "fused_continuation": dict(BASE, backend="pallas", fused=True,
                                continuation=True, warm_iters=300,
                                final_iters=200),
+    "unfused": dict(BASE, backend="pallas", fused=False),
+    "unfused_continuation": dict(BASE, backend="pallas", fused=False,
+                                 continuation=True, warm_iters=300,
+                                 final_iters=200),
 }
 
 
@@ -124,4 +130,78 @@ def test_warm_start_carried_from_reference():
     got = Solver(SolverConfig(**cfg)).run(
         _port_problem(jds), w0=w0, u0=u0,
         w_true=torch.from_numpy(np.array(jds.w_true)))
+    _assert_results_close(got, want)
+
+
+@pytest.mark.parametrize("loss,reg", [("squared", "tv"), ("squared", "tv2"),
+                                      ("logistic", "tv"),
+                                      ("lasso", "tv2")])
+def test_resolve_kernel_hooks(loss, reg):
+    """The pallas backend fills unset hooks with the port's kernels (the
+    clip for TV only, the affine map for the squared loss only); the
+    dense backend fills none; config hooks always win."""
+    ds = make_sbm_regression(seed=0, cluster_sizes=(20, 20), num_labeled=8,
+                             device="cpu")
+    problem = Problem.create(ds.graph, ds.data, 1e-3, loss=loss,
+                             regularizer=reg, device="cpu")
+    cfg = SolverConfig()
+    clip_fn, affine_fn = backends.resolve_kernel_hooks(problem, cfg, True)
+    assert clip_fn is (ops.tv_prox if reg == "tv" else None)
+    assert affine_fn is (ops.batched_affine if loss == "squared" else None)
+    assert backends.resolve_kernel_hooks(problem, cfg, False) == (None, None)
+
+    def mine(*args):
+        raise AssertionError("not called here")
+
+    hooked = cfg.replace(clip_fn=mine, affine_fn=mine)
+    for use_pallas in (True, False):
+        assert backends.resolve_kernel_hooks(problem, hooked,
+                                             use_pallas) == (mine, mine)
+
+
+@pytest.mark.parametrize("hook", ["clip_fn", "affine_fn"])
+def test_config_hook_disables_fusion_and_runs(hook):
+    """A caller's hook turns the fused gate off even with fused=True, and
+    it is the hook that runs, once per iteration."""
+    ds = make_sbm_regression(seed=0, cluster_sizes=(20, 20), num_labeled=8,
+                             device="cpu")
+    problem = Problem.create(ds.graph, ds.data, 1e-3, device="cpu")
+    calls = []
+    plain = {"clip_fn": ref.tv_prox_ref,
+             "affine_fn": ref.batched_affine_ref}[hook]
+
+    def mine(*args):
+        calls.append(hook)
+        return plain(*args)
+
+    base = SolverConfig(backend="pallas", fused=True, num_iters=30, rho=1.9)
+    cfg = base.replace(**{hook: mine})
+    assert backends._should_fuse(problem, base)
+    assert not backends._should_fuse(problem, cfg)
+    got = Solver(cfg).run(problem)
+    assert calls == [hook] * 30
+    want = Solver(base.replace(fused=False)).run(problem)
+    np.testing.assert_array_equal(got.w.numpy(), want.w.numpy())
+
+
+def test_loss_kwargs_cross_over_and_lasso_matches_reference():
+    """``problem_from_arrays`` carries a named loss's kwargs (the lasso's
+    ``alpha`` and ``num_inner``) across, and that lasso problem solves on
+    the unfused path as the reference's does."""
+    from repro_torch.api import LassoLoss
+
+    jds = j_make(seed=0)
+    kw = dict(alpha=0.02, num_inner=30)
+    g, d = jds.graph, jds.data
+    tp = problem_from_arrays(
+        {**{f: np.asarray(getattr(g, f)) for f in GRAPH_FIELDS},
+         "num_nodes": g.num_nodes},
+        {f: np.asarray(getattr(d, f)) for f in DATA_FIELDS}, 1e-3,
+        loss="lasso", device="cpu", **kw)
+    assert tp.loss == LassoLoss(**kw)
+    cfg = CASES["unfused"]
+    want = JSolver(JConfig(**cfg)).run(
+        JProblem.create(g, d, 1e-3, loss="lasso", **kw), w_true=jds.w_true)
+    got = Solver(SolverConfig(**cfg)).run(
+        tp, w_true=torch.from_numpy(np.array(jds.w_true)))
     _assert_results_close(got, want)
