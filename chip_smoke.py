@@ -3,18 +3,24 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels (``fused_pd_step``, ``tv_prox``,
-``batched_affine``) from this checkout into one library, holds each
-against its plain PyTorch version on the card, and drives both kernel
-paths of ``Solver(SolverConfig(backend="pallas", ...)).run``: the fused
-primal-dual solve and the unfused one (the dense loop with ``tv_prox``
-and ``batched_affine`` wired in).  Each runs on the paper's §5 instance,
-the unfused one also on the eight scenarios of the zoo, and both at full
-size (1,000,000 nodes, ~10.2M edges, one instance shared by the two),
-each against the dense backend on the card.  Each phase prints one JSON
-line with its seconds; any mismatch or error exits non-zero before the
-result.  The last three lines are the kernels' line, the card's name and
-power limit (``nvidia-smi``), and ``{"ok": true, "device": {...}}``.
+Builds the port's CUDA kernels (``fused_pd_step`` for the squared, lasso
+and logistic losses, ``tv_prox``, ``batched_affine``) from this checkout
+into one library, holds every kernel and variant (each loss in float32
+and bfloat16 storage) against its plain PyTorch version on the card, and
+drives both kernel paths of ``Solver(SolverConfig(backend="pallas",
+...)).run``: the fused primal-dual solve and the unfused one (the dense
+loop with ``tv_prox`` and ``batched_affine`` wired in).  They run on the
+paper's §5 instance, the eight scenarios of the zoo (every loss fused,
+and in bf16 storage), a ``tol`` phase that stops on the device with one
+fetch under ``torch.cuda.set_sync_debug_mode("error")``, and at full size
+(1,000,000 nodes, ~10.2M edges, one graph shared by every solve): the
+fused squared solve in float32 and bfloat16, the logistic and lasso
+solves in both, a fused tol solve, and the unfused and dense solves, each
+checked against the dense backend or the plain version on the card.
+Each phase prints one JSON line with its seconds; any mismatch or error
+exits non-zero before the result.  The last three lines are the kernels'
+line, the card's name and power limit (``nvidia-smi``), and ``{"ok":
+true, "device": {...}}``.
 
 Needs one CUDA device and the CUDA toolkit (``nvcc``); exits non-zero
 without printing a result when there is no card, or when it is run
@@ -47,6 +53,27 @@ KERNELS = {
                        "source": "src/repro_torch/csrc/ridge_prox.cu",
                        "replaces": "src/repro/kernels/ridge_prox.py:33"},
 }
+# fused_pd_step's variants: (loss, storage) -> kernels' line name; the
+# squared float32 one keeps the plain name of the earlier slices
+LOSS_SOURCE = {"squared": "src/repro_torch/csrc/pd_step.cu",
+               "lasso": "src/repro_torch/csrc/pd_step_lasso.cu",
+               "logistic": "src/repro_torch/csrc/pd_step_logistic.cu"}
+VARIANTS = [(loss, dt) for loss in ("squared", "lasso", "logistic")
+            for dt in ("float32", "bfloat16")]
+
+
+def variant_name(loss: str, dtype: str) -> str:
+    if (loss, dtype) == ("squared", "float32"):
+        return "fused_pd_step"
+    return f"fused_pd_step[{loss},{'f32' if dtype == 'float32' else 'bf16'}]"
+
+
+for _loss, _dt in VARIANTS:
+    KERNELS.setdefault(variant_name(_loss, _dt), {
+        "name": variant_name(_loss, _dt), "route": "cuda",
+        "source": LOSS_SOURCE[_loss],
+        "replaces": "src/repro/kernels/pd_step.py:144"})
+LASSO_KW = {"alpha": 0.02, "num_inner": 30}    # the zoo's sparse_lasso
 AFFINE_TOL = 1e-5          # batched_affine vs plain version (summation order)
 ZOO_OBJ_RTOL = 1e-5        # unfused vs dense objective traces, zoo
 L2_BYTES = 50e6            # H100 L2 cache
@@ -135,9 +162,24 @@ def max_diff(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
-def step_inputs(v, n, bv, seed, device):
+def bf16_ulp(scale: float) -> float:
+    """One bfloat16 ulp (8 significant bits) at magnitude ``scale``."""
+    return float(2.0 ** (np.floor(np.log2(scale)) - 7))
+
+
+def port_loss(name: str):
+    from repro_torch.api.losses import get_loss
+    return get_loss(name, **(LASSO_KW if name == "lasso" else {}))
+
+
+def step_inputs(v, n, bv, seed, device, loss="squared", dtype="float32"):
     """Storage tensors of one fused step on a small SBM (the shapes of
-    the port's kernel tests), squared-loss params ("b", "p")."""
+    the port's kernel tests), with the prox parameters of ``loss`` drawn
+    as ``tests/test_torch_kernels.py:_loss_arrays`` draws them (squared:
+    P = I + N(0, 0.01), b ~ N(0, 0.01); lasso: 3 samples per node;
+    logistic: 8, Bernoulli labels, every third node's last sample
+    masked; half the nodes labeled), and w, u and the parameters in the
+    storage ``dtype``."""
     import torch
     from repro_torch.core.graph import plan_edge_blocks, sbm_graph
 
@@ -145,11 +187,13 @@ def step_inputs(v, n, bv, seed, device):
     g, _ = sbm_graph(rng, (v // 2, v - v // 2), 0.3, 0.03, device=device)
     lt = plan_edge_blocks(g, block_nodes=bv)
 
-    def rand(*shape, scale=1.0):
-        a = scale * rng.standard_normal(shape)
-        return torch.from_numpy(a.astype(np.float32)).to(device)
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
 
-    eb = lt.block_edges
+    def rand(*shape, scale=1.0):
+        return t(scale * rng.standard_normal(shape))
+
+    eb, nodes = lt.block_edges, lt.nodes_pad
     deg = (lt.inc_signs != 0).sum(1).float()
     tau = torch.where(deg > 0, 1.0 / deg.clamp(min=1.0),
                       torch.ones_like(deg))
@@ -157,17 +201,43 @@ def step_inputs(v, n, bv, seed, device):
                           device=device)
     u_store[lt.klo * eb:lt.klo * eb + lt.edges_pad] = rand(
         lt.edges_pad, n, scale=0.1)
-    eye = torch.eye(n, device=device)
-    args = (lt.pad_node_store(rand(lt.nodes_pad, n)), u_store,
+    w_store = lt.pad_node_store(rand(nodes, n))
+    if loss == "squared":
+        params = (rand(nodes, n, scale=0.1),
+                  rand(nodes, n, n, scale=0.1) + torch.eye(n, device=device))
+    else:
+        tau_np = tau.cpu().numpy().astype(np.float64)
+        ms = 3 if loss == "lasso" else 8
+        x = rng.standard_normal((nodes, ms, n))
+        mask = np.ones((nodes, ms))
+        labeled = (rng.random(nodes) < 0.5).astype(np.float64)
+        if loss == "lasso":
+            y = np.einsum("vmn,vn->vm", x, rng.standard_normal((nodes, n)))
+            q = np.einsum("vmn,vmk->vnk", x, x)
+            lips = 2.0 * np.linalg.eigvalsh(q)[:, -1] / ms + 1.0 / tau_np
+            leaves = (labeled[:, None], np.full((nodes, 1), ms), q,
+                      (1.0 / lips)[:, None], tau_np[:, None],
+                      np.einsum("vmn,vm->vn", x, y))
+        else:
+            mask[::3, -1] = 0.0
+            y = (rng.random((nodes, ms)) < 0.5) * mask
+            leaves = (labeled[:, None], mask.sum(1)[:, None], mask,
+                      tau_np[:, None], x, y)
+        params = tuple(map(t, leaves))
+    store = getattr(torch, dtype)
+    args = (w_store.to(store), u_store.to(store),
             lt.pad_node_store(lt.inc_edges), lt.pad_node_store(lt.inc_signs),
-            (lt.pad_node_store(rand(lt.nodes_pad, n, scale=0.1)),
-             lt.pad_node_store(rand(lt.nodes_pad, n, n, scale=0.1) + eye)),
+            tuple(lt.pad_node_store(a).to(store).contiguous()
+                  for a in params),
             lt.pad_node_store(tau[:, None]), lt.src[:, None],
             lt.dst[:, None], torch.full((lt.edges_pad, 1), 0.5,
                                         device=device),
             (0.1 * lt.weights)[:, None])
-    kw = dict(pkeys=("b", "p"), block_nodes=lt.block_nodes,
-              block_edges=eb, kn=lt.kn, klo=lt.klo, khi=lt.khi)
+    pkeys = {"squared": ("b", "p"),
+             "lasso": ("labeled", "m", "q", "step", "tau", "xty"),
+             "logistic": ("labeled", "m", "mask", "tau", "x", "y")}[loss]
+    kw = dict(pkeys=pkeys, block_nodes=lt.block_nodes, block_edges=eb,
+              kn=lt.kn, klo=lt.klo, khi=lt.khi)
     return args, kw
 
 
@@ -175,7 +245,8 @@ def make_clustered(v: int, seed: int, device):
     """The repo's scale-out topology (``benchmarks/scaling.py:
     _make_clustered``): an SBM with ~2000-node clusters, degree ~20.5,
     0.007*V expected cross edges; n = 2, m_i = 5, 10% of nodes labeled,
-    noiseless labels from a per-cluster (2,2) / (-2,2) ground truth."""
+    noiseless labels from a per-cluster (2,2) / (-2,2) ground truth.
+    Returns the graph, the data, w_true and the cluster of each node."""
     import torch
     from repro_torch.core.graph import sbm_graph_sparse
     from repro_torch.core.losses import NodeData
@@ -197,7 +268,36 @@ def make_clustered(v: int, seed: int, device):
     data = NodeData(x=torch.from_numpy(x), y=torch.from_numpy(y),
                     sample_mask=torch.ones((v, 5)),
                     labeled_mask=torch.from_numpy(labeled)).to(device)
-    return g, data, torch.from_numpy(w_true).to(device)
+    return g, data, torch.from_numpy(w_true).to(device), assign
+
+
+def loss_instances(graph, assign, seed: int):
+    """The other two losses on the same graph, at the zoo's widths:
+    logistic with 8 samples per node and Bernoulli labels drawn by
+    ``data/synthetic.py:make_classification_data`` from the per-cluster
+    (2,2) / (-2,2) weights; the lasso at n = 4 with 3 samples per node
+    (the m_i < n regime) from ``scenarios/zoo.py:sparse_lasso``'s sparse
+    per-cluster weights and noise.  10% of nodes labeled in each.
+    Returns {loss: (Problem, w_true)}."""
+    from repro_torch.api import Problem
+    from repro_torch.data.synthetic import (make_classification_data,
+                                            make_regression_data)
+
+    v = graph.num_nodes
+    rng = np.random.default_rng(seed)
+    cls = make_classification_data(
+        rng, graph, np.where(assign[:, None] % 2 == 0, [2.0, 2.0],
+                             [-2.0, 2.0]), samples_per_node=8,
+        num_labeled=v // 10)
+    levels = np.array([[2.0, 0.0, -1.5, 0.0], [0.0, -2.0, 0.0, 1.5]],
+                      np.float32)
+    reg = make_regression_data(rng, graph, levels[assign % 2],
+                               samples_per_node=3, num_labeled=v // 10,
+                               noise_scale=0.05)
+    return {"logistic": (Problem.create(graph, cls.data, 1e-3,
+                                        loss="logistic"), cls.w_true),
+            "lasso": (Problem.create(graph, reg.data, 1e-2, loss="lasso",
+                                     **LASSO_KW), reg.w_true)}
 
 
 def bound(read: int, written: int, flops: int) -> dict:
@@ -210,7 +310,20 @@ def bound(read: int, written: int, flops: int) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def step_cost(args, kw) -> dict:
+def prox_flops(loss, n: int, params) -> int:
+    """Float operations of one node's prox, as the loss's plain version
+    states it."""
+    if loss.name == "squared":                  # P (v + b)
+        return 2 * n * n + n
+    if loss.name == "lasso":                    # ISTA: Q z, gradient, S
+        return loss.num_inner * (2 * n * n + 10 * n)
+    ms = params[4].shape[1]                     # Newton over m samples
+    per_sample = 2 * n + 8 + 2 * n + 3 * n * (n + 1) // 2
+    solve = n ** 3 // 3 + 2 * n * n + 3 * n * (n + 1) // 2 + 4 * n
+    return loss.num_inner * (ms * per_sample + solve)
+
+
+def step_cost(args, kw, loss) -> dict:
     """The least time one ``iters=1`` call could take on an H100: bytes
     it must move (each input read once, each output written once) over
     the memory rate, against the float operations this data needs over
@@ -218,17 +331,18 @@ def step_cost(args, kw) -> dict:
     function needs them: an int32 id and an f32 sign per slot plus int32
     row offsets (CSR); the padded tables the kernel reads are reported
     beside it."""
-    w_store, u_store, inc_e, inc_s, (b, p), tau, src, dst, sg, la = args
+    w_store, u_store, inc_e, inc_s, params, tau, src, dst, sg, la = args
     nb = src.shape[0] // kw["block_edges"]
     n = w_store.shape[1]
     nodes, edges = nb * kw["block_nodes"], nb * kw["block_edges"]
     filled = int((inc_s != 0).sum())
     incidence = 8 * filled + 4 * (inc_s.shape[0] + 1)
     read = incidence + sum(t.numel() * t.element_size() for t in
-                           (w_store, u_store, b, p, tau, src, dst, sg, la))
-    written = 4 * n * (nodes + edges)
+                           (w_store, u_store, *params, tau, src, dst, sg,
+                            la))
+    written = w_store.element_size() * n * (nodes + edges)
     flops = (2 * filled * n                     # signed gather-sum D^T u
-             + nodes * (2 * n * n + 6 * n)      # prox, z, KM
+             + nodes * (prox_flops(loss, n, params) + 6 * n)  # prox, z, KM
              + edges * 9 * n)                   # D z, resolvent, KM
     return {**bound(read, written, flops),
             "incidence_bytes_filled": incidence,
@@ -252,8 +366,9 @@ def phase_build(torch) -> None:
                            if "Compiling entry" in ln or "registers" in ln
                            or "spill" in ln]
                     for name, log in logs.items()}})
-    require(sorted(logs) == ["pd_step.cu", "ridge_prox.cu", "tv_prox.cu"],
-            f"built sources {sorted(logs)}")
+    require(sorted(logs) == ["pd_step.cu", "pd_step_lasso.cu",
+                             "pd_step_logistic.cu", "ridge_prox.cu",
+                             "tv_prox.cu"], f"built sources {sorted(logs)}")
 
 
 def box_draw(level, n: int, seed: int):
@@ -274,10 +389,34 @@ def affine_inputs(v, n, seed, device, p=None, v_scale=1.0):
     return p, v_scale * torch.randn((v, n), generator=gen, device=device)
 
 
+def check_step(torch, got, want, args, dtype: str) -> dict:
+    """A fused step's outputs against its plain version's: the largest
+    |dw|, |du| and residual difference, and the limits they are held to.
+    float32: STEP_TOL (the kernel sums in slot order with fused
+    multiply-adds and its own expf / sqrtf; the residual, a max of ratios
+    of order 1-10, to the same digits relative to its size).  bfloat16:
+    both round the same f32 values to nearest even, so an output may
+    differ by one bf16 ulp at the state's scale where an f32 difference
+    straddles a rounding boundary, and the residual by that ulp over
+    min(tau, sigma)."""
+    dw, du = max_diff(got[0], want[0]), max_diff(got[1], want[1])
+    dr = max_diff(got[2], want[2])
+    r_lim = STEP_TOL * max(1.0, float(want[2].abs()))
+    lim_w = lim_u = STEP_TOL
+    if dtype == "bfloat16":
+        lim_w = bf16_ulp(float(want[0].float().abs().max()))
+        lim_u = bf16_ulp(float(want[1].float().abs().max()))
+        tau, sigma = args[5], args[8]
+        steps = min(float(tau[tau > 0].min()), float(sigma.min()))
+        r_lim += max(lim_w, lim_u) / steps
+    return {"dw": dw, "du": du, "dres": dr, "limit_w": lim_w,
+            "limit_u": lim_u, "res_limit": r_lim,
+            "ok": dw <= lim_w and du <= lim_u and dr <= r_lim}
+
+
 def phase_kernel_vs_plain(torch, dev) -> dict:
-    """Every kernel option against the plain version; returns the max
-    error seen per kernel."""
-    from repro_torch.api.losses import SquaredLoss
+    """Every kernel option and variant against the plain version; returns
+    the max error seen per kernels' line name."""
     from repro_torch.api.regularizers import SquaredTV, TotalVariation
     from repro_torch.kernels.pd_step import fused_pd_step
     from repro_torch.kernels.ref import (batched_affine_ref,
@@ -287,39 +426,48 @@ def phase_kernel_vs_plain(torch, dev) -> dict:
 
     t0 = time.perf_counter()
     regs = {"tv": TotalVariation(), "tv2": SquaredTV()}
-    cases = [(v, n, bv, rho, reg, 1)
+    # the earlier slices' squared float32 cases, then every variant at
+    # widths 2..16, nb > 1 and iters > 1, each with the residual
+    cases = [("squared", "float32", v, n, bv, rho, reg, 1)
              for v, n, bv in ((61, 2, 16), (103, 3, 32), (40, 4, 64))
              for rho in (1.0, 1.9) for reg in regs]
-    cases += [(48, 2, None, 1.9, reg, 5) for reg in regs]
-    rows, err = [], 0.0
-    for v, n, bv, rho, reg, iters in cases:
-        args, kw = step_inputs(v, n, bv, seed=v, device=dev)
-        kw.update(loss=SquaredLoss(), reg=regs[reg], rho=rho, iters=iters,
+    cases += [("squared", "float32", 48, 2, None, 1.9, reg, 5)
+              for reg in regs]
+    cases += [(loss, dt) + c for loss, dt in VARIANTS for c in (
+        (61, 2, 16, 1.0, "tv", 1), (103, 3, 32, 1.9, "tv2", 1),
+        (64, 8, 16, 1.9, "tv", 1), (50, 16, 32, 1.0, "tv2", 1),
+        (48, 2, None, 1.9, "tv", 5), (48, 16, None, 1.9, "tv2", 5))]
+    rows, errs = [], {variant_name(*vt): 0.0 for vt in VARIANTS}
+    for loss, dt, v, n, bv, rho, reg, iters in cases:
+        args, kw = step_inputs(v, n, bv, seed=v, device=dev, loss=loss,
+                               dtype=dt)
+        kw.update(loss=port_loss(loss), reg=regs[reg], rho=rho, iters=iters,
                   compute_residual=True)
         got = fused_pd_step(*args, **kw)
         want = fused_pd_step_ref(*args, **kw)
         torch.cuda.synchronize()
-        dw, du = max_diff(got[0], want[0]), max_diff(got[1], want[1])
-        # the residual is a max of ratios (|dw|/tau, |du|/sigma) of order
-        # 1-10: held to the same digits, relative to its size
-        dr = max_diff(got[2], want[2]) / max(1.0, float(want[2].abs()))
-        rows.append({"v": v, "n": n, "bv": bv, "rho": rho, "reg": reg,
-                     "iters": iters, "dw": dw, "du": du, "dres_rel": dr})
-        require(max(dw, du, dr) <= STEP_TOL,
-                f"kernel vs plain version {rows[-1]}")
-        err = max(err, dw, du)
+        row = {"loss": loss, "dtype": dt, "v": v, "n": n, "bv": bv,
+               "rho": rho, "reg": reg, "iters": iters,
+               **check_step(torch, got, want, args, dt)}
+        rows.append(row)
+        require(row["ok"], f"kernel vs plain version {row}")
+        name = variant_name(loss, dt)
+        errs[name] = max(errs[name], row["dw"], row["du"])
 
     tv_rows, tv_err = [], 0.0
-    for e, n in TV_SHAPES:
-        gen = torch.Generator(device=dev).manual_seed(e)
-        level = torch.randn(e, generator=gen, device=dev).abs()
-        u = box_draw(level, n, seed=e)
-        d = max_diff(tv_prox(u, level), tv_prox_ref(u, level))
-        clipped = float((u.abs() > level[:, None]).float().mean())
-        tv_rows.append({"e": e, "n": n, "max_abs_err": d,
-                        "clipped_share": clipped})
-        require(d == 0.0, f"tv_prox vs plain version {tv_rows[-1]}")
-        tv_err = max(tv_err, d)
+    for dt in ("float32", "bfloat16"):
+        for e, n in TV_SHAPES:
+            gen = torch.Generator(device=dev).manual_seed(e)
+            level = torch.randn(e, generator=gen, device=dev).abs()
+            u = box_draw(level, n, seed=e).to(getattr(torch, dt))
+            got, want = tv_prox(u, level), tv_prox_ref(u, level)
+            d = max_diff(got, want)
+            clipped = float((u.float().abs() > level[:, None]).float().mean())
+            tv_rows.append({"dtype": dt, "e": e, "n": n, "max_abs_err": d,
+                            "clipped_share": clipped})
+            require(d == 0.0 and got.dtype == u.dtype,
+                    f"tv_prox vs plain version {tv_rows[-1]}")
+            tv_err = max(tv_err, d)
     affine_rows, affine_err = [], 0.0
     for v, n in AFFINE_SHAPES:
         p, x = affine_inputs(v, n, seed=v, device=dev)
@@ -330,13 +478,13 @@ def phase_kernel_vs_plain(torch, dev) -> dict:
         affine_err = max(affine_err, d)
     torch.cuda.synchronize()
     emit({"phase": "kernel_vs_plain", "seconds": time.perf_counter() - t0,
-          "fused_pd_step": {"tol": STEP_TOL, "max_abs_dw_du": err,
-                            "cases": rows},
+          "fused_pd_step": {"tol_f32": STEP_TOL,
+                            "tol_bf16": "one bf16 ulp at the state's scale",
+                            "max_abs_dw_du": errs, "cases": rows},
           "tv_prox": {"tol": 0.0, "max_abs_err": tv_err, "cases": tv_rows},
           "batched_affine": {"tol": AFFINE_TOL, "max_abs_err": affine_err,
                              "cases": affine_rows}})
-    return {"fused_pd_step": err, "tv_prox": tv_err,
-            "batched_affine": affine_err}
+    return {**errs, "tv_prox": tv_err, "batched_affine": affine_err}
 
 
 def reset_launches() -> None:
@@ -344,15 +492,19 @@ def reset_launches() -> None:
     from repro_torch.kernels.ridge_prox import batched_affine
     from repro_torch.kernels.tv_prox import tv_prox
     fused_pd_step.launches = tv_prox.launches = batched_affine.launches = 0
+    fused_pd_step.variant_launches.clear()
 
 
 def read_launches() -> dict:
+    """Launches per kernel since the last reset, and fused_pd_step's by
+    variant ("<loss>/<dtype>")."""
     from repro_torch.kernels.pd_step import fused_pd_step
     from repro_torch.kernels.ridge_prox import batched_affine
     from repro_torch.kernels.tv_prox import tv_prox
     return {"fused_pd_step": fused_pd_step.launches,
             "tv_prox": tv_prox.launches,
-            "batched_affine": batched_affine.launches}
+            "batched_affine": batched_affine.launches,
+            "fused_pd_step_variants": dict(fused_pd_step.variant_launches)}
 
 
 def compare(got, want) -> tuple[float, float]:
@@ -409,8 +561,11 @@ def phase_paper_s5(torch, cfg) -> None:
 
 def phase_zoo(torch, dev) -> None:
     """The eight scenarios at smoke size on the card: the route
-    ``fused=None`` takes, and the unfused path against the dense
-    backend, with each kernel's launches."""
+    ``fused=None`` takes (fused, for every loss), that route and the
+    unfused path against the dense backend, each kernel's launches, and
+    the fused solve in bf16 storage against the dense f32 one under the
+    reference's gates (``tests/test_precision.py``: final objective
+    within 15%, w within 0.5 of its scale)."""
     from repro_torch.api import Solver, SolverConfig, backends
     from repro_torch.scenarios import SCENARIOS, get_scenario
 
@@ -433,8 +588,16 @@ def phase_zoo(torch, dev) -> None:
         routed = Solver(auto).run(problem)
         torch.cuda.synchronize()
         route_launches = read_launches()
+        reset_launches()
+        bf16 = Solver(auto.replace(fused=True, dtype="bfloat16",
+                                   metric_every=10)).run(problem)
+        torch.cuda.synchronize()
+        bf16_launches = read_launches()
         dw, obj_rel = compare(unfused, dense)
         r_dw, r_obj_rel = compare(routed, dense)
+        b_obj_rel = float((bf16.objective[-1] - dense.objective[-1])
+                          / dense.objective[-1].abs())
+        b_w_rel = max_diff(bf16.w, dense.w) / float(dense.w.abs().max())
         row = {"scenario": name, "loss": scenario.loss,
                "regularizer": scenario.regularizer, "route": route,
                "unfused_launches": launches,
@@ -443,11 +606,15 @@ def phase_zoo(torch, dev) -> None:
                "route_launches": route_launches,
                "route_max_abs_dw_vs_dense": r_dw,
                "route_objective_max_rel_vs_dense": r_obj_rel,
+               "bf16_launches": bf16_launches,
+               "bf16_objective_rel_vs_dense_f32": b_obj_rel,
+               "bf16_w_rel_vs_dense_f32": b_w_rel,
                "dual_infeasibility": float(
                    unfused.diagnostics["dual_infeasibility"])}
         rows.append(row)
         require(dw <= SOLVE_TOL and obj_rel <= ZOO_OBJ_RTOL,
                 f"zoo unfused vs dense {row}")
+        require(route == "fused", f"zoo: fused=None did not fuse {row}")
         require(r_dw <= SOLVE_TOL and r_obj_rel <= SOLVE_TOL,
                 f"zoo fused=None route vs dense {row}")
         require((launches["tv_prox"] > 0) == (scenario.regularizer == "tv"),
@@ -455,66 +622,176 @@ def phase_zoo(torch, dev) -> None:
         require((launches["batched_affine"] > 0)
                 == (scenario.loss == "squared"),
                 f"zoo batched_affine launches {row}")
-        require((route == "fused") == (route_launches["fused_pd_step"] > 0),
+        require(launches["fused_pd_step"] == 0
+                and route_launches["fused_pd_step_variants"].get(
+                    f"{scenario.loss}/float32", 0) > 0,
                 f"zoo route launches {row}")
-        require(bool(torch.isfinite(unfused.w).all()), f"zoo w {row}")
+        require(bf16_launches["fused_pd_step_variants"].get(
+                    f"{scenario.loss}/bfloat16", 0) > 0,
+                f"zoo bf16 launches {row}")
+        require(b_obj_rel <= 0.15 and b_w_rel <= 0.5,
+                f"zoo bf16 vs dense f32 gates {row}")
+        require(bool(torch.isfinite(unfused.w).all()
+                     and torch.isfinite(bf16.w).all()), f"zoo w {row}")
     emit({"phase": "zoo", "seconds": time.perf_counter() - t0,
           "num_iters": base.num_iters, "rho": base.rho,
           "tol_w": SOLVE_TOL, "tol_objective_rel": ZOO_OBJ_RTOL,
+          "bf16_gates": {"objective_rel": 0.15, "w_rel": 0.5},
           "scenarios": rows})
 
 
-def phase_full_size(torch, dev, cfg, big, w_true, gen_s) -> dict:
-    """The scale-out topology at FULL_NODES through the fused path, then
-    the kernel alone and its plain version over one metric block from a
-    random state at the solve's scale.  Returns the kernel's entry for
-    the kernels' line."""
+def phase_tol(torch) -> None:
+    """Tolerance stopping on the §5 instance at lambda 1e-2 (``tests/
+    test_device_stop.py``'s settings): a dense and a fused tol solve,
+    each after a warm-up, under ``torch.cuda.set_sync_debug_mode
+    ("error")`` so that any host synchronization but the port's one
+    fetch raises; then the same solve cut at its stopping iteration, so
+    the difference is what the launches after the stop cost."""
+    from repro_torch.api import Problem, SolverConfig
+    from repro_torch.data.synthetic import make_sbm_regression
+
+    t0 = time.perf_counter()
+    ds = make_sbm_regression(seed=0)
+    problem = Problem.create(ds.graph, ds.data, 1e-2)
+    cfg = SolverConfig(num_iters=4000, rho=1.9, metric_every=10, tol=5e-3,
+                       compute_diagnostics=False)
+    rows, results = {}, {}
+    for name, path in (("dense", dict(backend="dense")),
+                       ("fused", dict(backend="pallas", fused=True))):
+        row, result = tol_solve(torch, problem, cfg.replace(**path))
+        require(row["fetches"] == 1, f"tol {name}: {row['fetches']} fetches")
+        require(0 < row["iterations"] < cfg.num_iters,
+                f"tol {name} did not stop: {row}")
+        rows[name], results[name] = row, result
+    require(rows["fused"]["launches"]["fused_pd_step"]
+            == cfg.num_iters // cfg.metric_every,
+            f"tol fused launches {rows['fused']}")
+    dw = max_diff(results["fused"].w, results["dense"].w)
+    emit({"phase": "tol", "seconds": time.perf_counter() - t0,
+          "instance": "make_sbm_regression(seed=0), lam 1e-2",
+          "config": {"num_iters": cfg.num_iters, "rho": cfg.rho,
+                     "metric_every": cfg.metric_every, "tol": cfg.tol},
+          "max_abs_dw_fused_vs_dense": dw, **rows})
+    require(rows["fused"]["iterations"] == rows["dense"]["iterations"],
+            f"tol: fused and dense stopped apart {rows}")
+    require(dw <= SOLVE_TOL, f"tol fused vs dense |dw| = {dw}")
+
+
+def tol_solve(torch, problem, cfg) -> tuple[dict, object]:
+    """One tol solve after a warm-up, timed, under sync debug mode
+    "error", with its fetch count and launches; then the same solve as
+    a fixed budget of its stopping iteration, timed."""
+    from repro_torch.api import Solver
+    from repro_torch.engine import device_fetch
+
+    Solver(cfg).run(problem)                  # warm-up: layout, handles
+    torch.cuda.synchronize()
+    fetches = device_fetch.calls
+    reset_launches()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        result = Solver(cfg).run(problem)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    fetched = device_fetch.calls - fetches
+    it = result.diagnostics["iterations"]
+    cut_cfg = cfg.replace(num_iters=it, tol=None)
+    Solver(cut_cfg).run(problem)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cut = Solver(cut_cfg).run(problem)
+    torch.cuda.synchronize()
+    cut_s = time.perf_counter() - t0
+    require(torch.equal(cut.w, result.w),
+            "tol: the blocks after the stop moved the state")
+    blocks = cfg.num_iters // cfg.metric_every
+    return {"iterations": it, "fetches": fetched, "seconds": wall,
+            "seconds_cut_at_stop": cut_s,
+            "seconds_after_stop": wall - cut_s,
+            "blocks_after_stop": blocks - it // cfg.metric_every,
+            "launches": launches}, result
+
+
+def moving_state(torch, lt, n, la2, device, store):
+    """Padded (w_store, u_store) of layout ``lt`` in dtype ``store``,
+    from which the state still moves: w at the solve's scale (|w_true| =
+    2), each dual drawn uniformly from its box [-la_e, la_e]."""
+    eb, lo = lt.block_edges, lt.klo * lt.block_edges
+    gen = torch.Generator(device=device).manual_seed(1)
+    w_store = lt.pad_node_store(2.0 * torch.randn(
+        (lt.nodes_pad, n), generator=gen, device=device))
+    u_store = torch.zeros(((lt.num_blocks + lt.klo + lt.khi) * eb, n),
+                          device=device)
+    u_store[lo:lo + lt.edges_pad] = la2 * (2.0 * torch.rand(
+        (lt.edges_pad, n), generator=gen, device=device) - 1.0)
+    return w_store.to(store), u_store.to(store)
+
+
+def full_size_solve(torch, dev, cfg, problem, w_true, *, drift=False,
+                    profile=False) -> tuple[dict, dict]:
+    """One fused solve at full size (``cfg`` names its storage dtype),
+    then the kernel alone and its plain version over one step and over
+    one metric block from a random state at the solve's scale.  Returns
+    (the phase row, the variant's entry for the kernels' line).
+    ``drift`` adds a float64 run of the plain version as a yardstick,
+    ``profile`` a profiled metric block."""
     from repro_torch.api import Solver, backends
     from repro_torch.engine import capped
     from repro_torch.kernels.pd_step import fused_pd_step
     from repro_torch.kernels.ref import fused_pd_step_ref
 
+    loss, dtype = problem.loss.name, cfg.dtype
+    variant = f"{loss}/{dtype}"
+    store = getattr(torch, dtype)
     t0 = time.perf_counter()
-    require(backends._should_fuse(big, cfg), "full size does not fuse")
-    plan_s = time.perf_counter() - t0         # plans and caches the layout
-    lt = backends._graph_layout(big.graph)
+    require(backends._should_fuse(problem, cfg), f"{variant}: no fusion")
+    plan_s = time.perf_counter() - t0         # plans (or fetches) the layout
+    lt = backends._graph_layout(problem.graph)
 
     iterations = (capped(cfg.warm_iters, cfg.metric_every)
-                  + capped(cfg.final_iters, cfg.metric_every))
+                  + capped(cfg.final_iters, cfg.metric_every)
+                  if cfg.continuation else cfg.num_iters)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     reset_launches()
-    result = Solver(cfg).run(big, w_true=w_true)
+    result = Solver(cfg).run(problem, w_true=w_true)
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
-    launches = fused_pd_step.launches
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     diag = {k: float(v) for k, v in result.diagnostics.items()}
-    require(launches > 0, "the full-size solve launched no kernel")
+    # bf16 stores a clipped dual rounded to nearest: up to half an ulp
+    # of the clip level past it
+    la_max = float(problem.lam * problem.graph.weights.max())
+    infeasible_lim = 1e-6 + (bf16_ulp(la_max) / 2 if dtype == "bfloat16"
+                             else 0.0)
+    require(launches["fused_pd_step_variants"].get(variant, 0) > 0
+            and launches["fused_pd_step"]
+            == launches["fused_pd_step_variants"][variant],
+            f"{variant} solve launches {launches}")
     require(bool(torch.isfinite(result.w).all()
                  and torch.isfinite(result.objective).all()),
-            "full-size result not finite")
-    require(diag["dual_infeasibility"] <= 1e-6, "full-size dual infeasible")
+            f"{variant} full-size result not finite")
+    require(diag["dual_infeasibility"] <= infeasible_lim,
+            f"{variant} full-size dual infeasible {diag}")
 
-    # the kernel alone at the target lambda, from a state that still
-    # moves: w at the solve's scale (|w_true| = 2), each dual drawn
-    # uniformly from its box [-la_e, la_e]
+    # the kernel alone at the target lambda, from a state that moves
     (params_s, pkeys, _, tau_s, _, sig2, src2, dst2, la2, _) = \
-        backends._fused_setup(big.graph, big.data, big.lam, None,
-                              loss=big.loss, reg=big.regularizer, layout=lt)
-    n, eb, lo = big.num_features, lt.block_edges, lt.klo * lt.block_edges
-    gen = torch.Generator(device=dev).manual_seed(1)
-    w_store = lt.pad_node_store(2.0 * torch.randn(
-        (lt.nodes_pad, n), generator=gen, device=dev))
-    u_store = torch.zeros(((lt.num_blocks + lt.klo + lt.khi) * eb, n),
-                          device=dev)
-    u_store[lo:lo + lt.edges_pad] = la2 * (2.0 * torch.rand(
-        (lt.edges_pad, n), generator=gen, device=dev) - 1.0)
+        backends._fused_setup(problem.graph, problem.data, problem.lam,
+                              None, loss=problem.loss,
+                              reg=problem.regularizer, layout=lt,
+                              dtype=store)
+    n, eb, lo = problem.num_features, lt.block_edges, lt.klo * lt.block_edges
+    w_store, u_store = moving_state(torch, lt, n, la2, dev, store)
     args = (w_store, u_store, lt.pad_node_store(lt.inc_edges),
             lt.pad_node_store(lt.inc_signs), params_s, tau_s, src2, dst2,
             sig2, la2)
-    kw = dict(loss=big.loss, reg=big.regularizer, pkeys=pkeys,
+    kw = dict(loss=problem.loss, reg=problem.regularizer, pkeys=pkeys,
               block_nodes=lt.block_nodes, block_edges=eb, kn=lt.kn,
               klo=lt.klo, khi=lt.khi, rho=cfg.rho)
     ms = cuda_ms(lambda _: fused_pd_step(*args, **kw), reps=20)
@@ -522,7 +799,7 @@ def phase_full_size(torch, dev, cfg, big, w_true, gen_s) -> dict:
     block_iters = cfg.metric_every if lt.num_blocks == 1 else 1
     block_ms = cuda_ms(
         lambda _: fused_pd_step(*args, **kw, iters=block_iters), reps=3)
-    cost = step_cost(args, kw)
+    cost = step_cost(args, kw, problem.loss)
 
     def metric_block(fn, args):
         """One metric block (``metric_every`` iterations) from the shared
@@ -539,53 +816,130 @@ def phase_full_size(torch, dev, cfg, big, w_true, gen_s) -> dict:
     k_out = metric_block(fused_pd_step, args)
     p_out = metric_block(fused_pd_step_ref, args)
     dw, du = max_diff(k_out[0], p_out[0]), max_diff(k_out[1], p_out[1])
+    # float32 drift over the block, plus, for the single rounding of a
+    # bf16 launch, one bf16 ulp at the scale of w and of u
+    def limit_of(t):
+        ulp = bf16_ulp(float(t.float().abs().max()))
+        return SOLVE_TOL + (ulp if dtype == "bfloat16" else 0.0)
+    lim_w, lim_u = limit_of(p_out[0]), limit_of(p_out[1])
     # how far the plain version moved the state: a wrong kernel is caught
     # only where the state moves well beyond the limit
     moved_w = max_diff(p_out[0], w_store[:p_out[0].shape[0]])
     moved_u = max_diff(p_out[1], u_store[lo:lo + p_out[1].shape[0]])
-    # the plain version in float64 as a yardstick: how far each float32
-    # version drifts from exact arithmetic over the block
-    def f64(t):
-        return t.double() if t.is_floating_point() else t
-    args64 = tuple(tuple(map(f64, a)) if isinstance(a, tuple) else f64(a)
-                   for a in args)
-    x_out = metric_block(fused_pd_step_ref, args64)
-    drift = {"kernel_dw": max_diff(k_out[0], x_out[0]),
-             "kernel_du": max_diff(k_out[1], x_out[1]),
-             "plain_dw": max_diff(p_out[0], x_out[0]),
-             "plain_du": max_diff(p_out[1], x_out[1])}
-    block_cfg = cfg.replace(continuation=False, num_iters=cfg.metric_every,
-                            compute_diagnostics=False)
-    prof = device_profile(torch, lambda _: Solver(block_cfg).run(big),
-                          reps=1)
-    emit({"phase": "full_size", "nodes": big.num_nodes,
-          "edges": big.graph.num_edges, "max_degree": big.graph.max_degree,
-          "layout": {"num_blocks": lt.num_blocks,
-                     "block_nodes": lt.block_nodes, "block_edges": eb,
-                     "kn": lt.kn, "klo": lt.klo, "khi": lt.khi},
-          "generate_seconds": gen_s, "plan_seconds": plan_s,
-          "solve_seconds": solve_s, "iterations": iterations,
-          "iterations_per_s": iterations / solve_s, "launches": launches,
-          "kernel_ms_per_step": ms,
-          "kernel_ms_per_launch": {"iters": block_iters, "ms": block_ms},
-          "plain_ms_per_step": plain_ms, **cost,
-          "max_memory_allocated": peak, "mse_last": float(result.mse[-1]),
-          "objective_last": float(result.objective[-1]),
-          "diagnostics": diag, "block_iters": cfg.metric_every,
-          "block_max_abs_dw": dw, "block_max_abs_du": du,
-          "plain_moved_max_abs_w": moved_w,
-          "plain_moved_max_abs_u": moved_u, "block_drift_from_f64": drift,
-          "profile_one_metric_block": prof})
-    require(max(dw, du) <= SOLVE_TOL,
-            f"full size, {cfg.metric_every} iterations: |dw| {dw}, "
-            f"|du| {du}")
-    require(min(moved_w, moved_u) >= 10 * SOLVE_TOL,
-            f"full size: the state barely moved (|w| {moved_w}, "
+    row = {"loss": loss, "dtype": dtype, "nodes": problem.num_nodes,
+           "edges": problem.graph.num_edges,
+           "num_features": n, "lam": problem.lam,
+           "layout": {"num_blocks": lt.num_blocks,
+                      "block_nodes": lt.block_nodes, "block_edges": eb,
+                      "kn": lt.kn, "klo": lt.klo, "khi": lt.khi},
+           "plan_seconds": plan_s, "solve_seconds": solve_s,
+           "iterations": iterations, "continuation": cfg.continuation,
+           "iterations_per_s": iterations / solve_s, "launches": launches,
+           "kernel_ms_per_step": ms,
+           "kernel_ms_per_launch": {"iters": block_iters, "ms": block_ms},
+           "plain_ms_per_step": plain_ms, **cost,
+           "max_memory_allocated": peak,
+           "mse_last": float(result.mse[-1]),
+           "objective_last": float(result.objective[-1]),
+           "diagnostics": diag, "block_iters": cfg.metric_every,
+           "block_max_abs_dw": dw, "block_max_abs_du": du,
+           "block_limit_w": lim_w, "block_limit_u": lim_u,
+           "plain_moved_max_abs_w": moved_w,
+           "plain_moved_max_abs_u": moved_u}
+    if drift:
+        # the plain version in float64 as a yardstick: how far each
+        # float32 version drifts from exact arithmetic over the block
+        def f64(t):
+            return t.double() if t.is_floating_point() else t
+        args64 = tuple(tuple(map(f64, a)) if isinstance(a, tuple)
+                       else f64(a) for a in args)
+        x_out = metric_block(fused_pd_step_ref, args64)
+        row["block_drift_from_f64"] = {
+            "kernel_dw": max_diff(k_out[0], x_out[0]),
+            "kernel_du": max_diff(k_out[1], x_out[1]),
+            "plain_dw": max_diff(p_out[0], x_out[0]),
+            "plain_du": max_diff(p_out[1], x_out[1])}
+    if profile:
+        block_cfg = cfg.replace(continuation=False,
+                                num_iters=cfg.metric_every,
+                                compute_diagnostics=False)
+        row["profile_one_metric_block"] = device_profile(
+            torch, lambda _: Solver(block_cfg).run(problem), reps=1)
+    require(dw <= lim_w and du <= lim_u,
+            f"{variant} full size, {cfg.metric_every} iterations: |dw| {dw}, "
+            f"|du| {du}, limits {lim_w}, {lim_u}")
+    require(moved_w >= 10 * lim_w and moved_u >= 10 * lim_u,
+            f"{variant} full size: the state barely moved (|w| {moved_w}, "
             f"|u| {moved_u}), so the comparison shows nothing")
-    return dict(KERNELS["fused_pd_step"], launches=launches,
-                max_abs_err=max(dw, du), ms=ms, plain_ms=plain_ms,
-                bound_ms=cost["bound_ms"], bound_by=cost["bound_by"],
-                library_ms=None)
+    name = variant_name(loss, dtype)
+    entry = dict(KERNELS[name],
+                 launches=launches["fused_pd_step_variants"][variant],
+                 max_abs_err=max(dw, du), ms=ms, plain_ms=plain_ms,
+                 bound_ms=cost["bound_ms"], bound_by=cost["bound_by"],
+                 library_ms=None)
+    return row, entry
+
+
+def phase_full_size(torch, dev, cfg, big, w_true, gen_s) -> dict:
+    """The scale-out topology at FULL_NODES through the fused path
+    (squared loss, float32), the kernel alone and its plain version, a
+    float64 yardstick and a profiled metric block.  Returns the kernel's
+    entry for the kernels' line."""
+    row, entry = full_size_solve(torch, dev, cfg, big, w_true, drift=True,
+                                 profile=True)
+    emit({"phase": "full_size", "generate_seconds": gen_s,
+          "max_degree": big.graph.max_degree, **row})
+    return entry
+
+
+def phase_full_size_variants(torch, dev, cfg, big, w_true, others) -> list:
+    """The other five variants at full size on the same graph: the
+    squared continuation solve in bf16, and fixed-budget solves of the
+    logistic and lasso instances (``loss_instances``) in float32 and
+    bf16.  Returns their entries for the kernels' line."""
+    t0 = time.perf_counter()
+    fixed = cfg.replace(continuation=False, num_iters=1000)
+    runs = [(cfg.replace(dtype="bfloat16"), big, w_true)]
+    for loss in ("logistic", "lasso"):
+        problem, truth = others[loss]
+        runs += [(fixed.replace(dtype=dt), problem, truth)
+                 for dt in ("float32", "bfloat16")]
+    rows, entries = [], []
+    for run_cfg, problem, truth in runs:
+        row, entry = full_size_solve(torch, dev, run_cfg, problem, truth)
+        rows.append(row)
+        entries.append(entry)
+    emit({"phase": "full_size_variants",
+          "seconds": time.perf_counter() - t0, "runs": rows})
+    return entries
+
+
+def phase_full_size_tol(torch, cfg, big) -> None:
+    """A fused tol solve at full size (squared, float32).  A first solve
+    with tol 0 never stops and records every block's residual; tol is
+    then set to the residual of block 10, so the tol solve must stop
+    after the first block at or below it, which the probe's trace
+    names.  The tol solve runs under sync debug mode "error" with its
+    one fetch, then cut at its stop (``tol_solve``)."""
+    from repro_torch.api import Solver
+
+    t0 = time.perf_counter()
+    probe_cfg = cfg.replace(continuation=False, num_iters=2000, tol=0.0,
+                            compute_diagnostics=False)
+    probe = Solver(probe_cfg).run(big)
+    trace = probe.residual.cpu().numpy()
+    require(probe.diagnostics["iterations"] == probe_cfg.num_iters
+            and trace.shape == (20,), f"tol probe {probe.diagnostics}")
+    tol = float(trace[9])
+    expected = (int(np.argmax(trace <= tol)) + 1) * cfg.metric_every
+    row, result = tol_solve(torch, big, probe_cfg.replace(tol=tol))
+    emit({"phase": "full_size_tol", "seconds": time.perf_counter() - t0,
+          "tol": tol, "probe_residuals": trace.tolist(),
+          "expected_iterations": expected, **row})
+    require(row["fetches"] == 1, f"full-size tol fetches {row}")
+    require(row["iterations"] == expected,
+            f"full-size tol stopped at {row['iterations']}, not {expected}")
+    require(bool(torch.isfinite(result.w).all()), "full-size tol w")
 
 
 def phase_unfused_full_size(torch, dev, cfg, big, w_true) -> list:
@@ -648,6 +1002,18 @@ def phase_unfused_full_size(torch, dev, cfg, big, w_true) -> list:
                 "plain_ms": cuda_ms(lambda _: tv_prox_ref(u, bnd), reps=50),
                 "library_ms": cuda_ms(lambda _: torch.clamp(u, lo, hi),
                                       reps=50)}
+    # the bf16 instantiation at the same shape: on no solve path (bf16 is
+    # a fused-path policy), timed and held bit-equal all the same
+    u16 = u.to(torch.bfloat16)
+    lo16, hi16 = lo.to(torch.bfloat16), hi.to(torch.bfloat16)
+    tv16_err = max_diff(tv_prox(u16, bnd), tv_prox_ref(u16, bnd))
+    tv16 = {"max_abs_err": tv16_err,
+            "ms": cuda_ms(lambda _: tv_prox(u16, bnd), reps=50),
+            "plain_ms": cuda_ms(lambda _: tv_prox_ref(u16, bnd), reps=50),
+            "library_ms": cuda_ms(lambda _: torch.clamp(u16, lo16, hi16),
+                                  reps=50),
+            **bound(2 * u.numel() + 4 * bnd.numel(), 2 * u.numel(),
+                    2 * u.numel())}
 
     p = big.loss.prox_setup(big.data, g.primal_stepsizes())["p"]
     p, v = affine_inputs(v_nodes, n, seed=3, device=dev, p=p.contiguous(),
@@ -681,6 +1047,7 @@ def phase_unfused_full_size(torch, dev, cfg, big, w_true) -> list:
           "mse_last": float(result.mse[-1]),
           "dense_mse_last": float(dense.mse[-1]), "diagnostics": diag,
           "profile_one_metric_block": solve_prof,
+          "tv_prox_bf16": tv16,
           "tv_prox": {"shape": [e, n], "max_abs_err": tv_err,
                       "clipped_share": clipped, **tv_times, **tv_cost,
                       "profile": tv_prof},
@@ -690,7 +1057,8 @@ def phase_unfused_full_size(torch, dev, cfg, big, w_true) -> list:
                              "timing_bytes_in_rotation": copies * per_copy,
                              **affine_times, **affine_cost,
                              "profile": affine_prof}})
-    require(tv_err == 0.0, f"full-size tv_prox vs plain |d| = {tv_err}")
+    require(tv_err == 0.0 and tv16_err == 0.0,
+            f"full-size tv_prox vs plain |d| = {tv_err}, bf16 {tv16_err}")
     require(0.25 <= clipped <= 0.75,
             f"full-size tv_prox check clipped {clipped} of the entries")
     require(affine_err <= AFFINE_TOL,
@@ -709,7 +1077,136 @@ def phase_unfused_full_size(torch, dev, cfg, big, w_true) -> list:
                  library_ms=affine_times["library_ms"])]
 
 
+def save_instance(path: Path, device="cuda") -> None:
+    """Generate the full-size instance and plan its layout once, then
+    save the graph, data and layout arrays to ``path`` (.npz), so that
+    every process of an A/B comparison solves the same instance without
+    planning it again."""
+    import dataclasses
+
+    from repro_torch.api import Problem, SolverConfig, backends
+    from repro_torch.core.graph import EdgeBlockLayout
+
+    graph, data, w_true, _ = make_clustered(FULL_NODES, seed=0,
+                                            device=device)
+    problem = Problem.create(graph, data, 1e-3, device=device)
+    cfg = SolverConfig(backend="pallas", fused=True)
+    require(backends._should_fuse(problem, cfg), "A/B instance: no fusion")
+    lt = backends._graph_layout(graph)
+    arrays = {f"g_{k}": getattr(graph, k).cpu().numpy()
+              for k in ("src", "dst", "weights", "inc_edges", "inc_signs")}
+    arrays.update({f"d_{k}": getattr(data, k).cpu().numpy()
+                   for k in ("x", "y", "sample_mask", "labeled_mask")})
+    for f in dataclasses.fields(EdgeBlockLayout):
+        v = getattr(lt, f.name)
+        arrays[f"l_{f.name}"] = (np.asarray(v) if isinstance(v, int)
+                                 else v.cpu().numpy())
+    np.savez(path, num_nodes=graph.num_nodes, w_true=w_true.cpu().numpy(),
+             **arrays)
+
+
+def time_fused_solve(root: Path, path: Path, reps: int = 3,
+                     device="cuda") -> dict:
+    """In this process, with the ``repro_torch`` of checkout ``root``:
+    the fused squared float32 continuation solve of the saved instance
+    (after one warm-up solve) and the kernel alone per step.  Uses only
+    what every slice of the port has, so it times an earlier checkout
+    as well."""
+    import dataclasses
+
+    import torch
+    sys.path.insert(0, str(root / "src"))
+    from repro_torch import interop
+    from repro_torch.api import Problem, Solver, SolverConfig, backends
+    from repro_torch.core.graph import EdgeBlockLayout
+    from repro_torch.kernels.pd_step import fused_pd_step
+
+    z = np.load(path)
+    graph = interop.graph_from_arrays(
+        **{k: z[f"g_{k}"] for k in ("src", "dst", "weights", "inc_edges",
+                                    "inc_signs")},
+        num_nodes=int(z["num_nodes"]), device=device)
+    lt = interop.layout_from_arrays(
+        {f.name: z[f"l_{f.name}"] for f in dataclasses.fields(
+            EdgeBlockLayout)}, device=device)
+    graph = dataclasses.replace(graph, layout=lt)
+    data = interop.node_data_from_arrays(
+        *(z[f"d_{k}"] for k in ("x", "y", "sample_mask", "labeled_mask")),
+        device=device)
+    problem = Problem.create(graph, data, 1e-3, device=device)
+    w_true = torch.from_numpy(z["w_true"]).to(device)
+    cfg = SolverConfig(backend="pallas", fused=True, continuation=True,
+                       rho=1.9, metric_every=100)
+    Solver(cfg).run(problem, w_true=w_true)
+    rates = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Solver(cfg).run(problem, w_true=w_true)
+        torch.cuda.synchronize()
+        rates.append((cfg.warm_iters + cfg.final_iters)
+                     / (time.perf_counter() - t0))
+    (params_s, pkeys, _, tau_s, _, sig2, src2, dst2, la2, _) = \
+        backends._fused_setup(graph, data, 1e-3, None, loss=problem.loss,
+                              reg=problem.regularizer, layout=lt)
+    eb = lt.block_edges
+    w_store, u_store = moving_state(torch, lt, 2, la2, device,
+                                    torch.float32)
+    args = (w_store, u_store, lt.pad_node_store(lt.inc_edges),
+            lt.pad_node_store(lt.inc_signs), params_s, tau_s, src2, dst2,
+            sig2, la2)
+    kw = dict(loss=problem.loss, reg=problem.regularizer, pkeys=pkeys,
+              block_nodes=lt.block_nodes, block_edges=eb, kn=lt.kn,
+              klo=lt.klo, khi=lt.khi, rho=cfg.rho)
+    ms = cuda_ms(lambda _: fused_pd_step(*args, **kw), reps=20)
+    return {"root": str(root), "iterations_per_s": rates,
+            "kernel_ms_per_step": ms}
+
+
+def ab_main(argv: list) -> int:
+    """``--ab PARENT``: the fused squared float32 solve at full size with
+    the parent checkout ``PARENT`` and this one, in turns (parent,
+    change, change, parent), each in its own process on one saved
+    instance.  ``--time-solve ROOT NPZ``: one such process."""
+    import subprocess as sp
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    if argv[0] == "--time-solve":
+        emit(time_fused_solve(Path(argv[1]).resolve(), Path(argv[2])))
+        return 0
+    require(argv[0] == "--ab" and len(argv) == 2, f"arguments {argv}")
+    parent = Path(argv[1]).resolve()
+    sys.path.insert(0, str(ROOT / "src"))
+    path = ROOT / "build" / "ab_instance.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    save_instance(path)
+    emit({"phase": "ab_instance", "seconds": time.perf_counter() - t0})
+    runs = []
+    try:
+        for root in (parent, ROOT, ROOT, parent):
+            proc = sp.run([sys.executable, str(Path(__file__).resolve()),
+                           "--time-solve", str(root), str(path)],
+                          capture_output=True, text=True, timeout=900,
+                          check=False)
+            require(proc.returncode == 0,
+                    f"A/B run in {root} failed:\n{proc.stderr[-4000:]}")
+            runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+            emit(runs[-1])
+    finally:
+        path.unlink(missing_ok=True)
+    print(card_line(), flush=True)
+    emit({"phase": "ab", "parent": str(parent),
+          "kind": torch.cuda.get_device_name(0), "runs": runs})
+    return 0
+
+
 def main() -> int:
+    if len(sys.argv) > 1:
+        return ab_main(sys.argv[1:])
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -734,12 +1231,17 @@ def main() -> int:
     errs = phase_kernel_vs_plain(torch, dev)
     phase_paper_s5(torch, cfg)
     phase_zoo(torch, dev)
-    # one full-size instance for both kernel paths
+    phase_tol(torch)
+    # one full-size graph for every solve: the layout is planned once
     t0 = time.perf_counter()
-    graph, data, w_true = make_clustered(FULL_NODES, seed=0, device=dev)
+    graph, data, w_true, assign = make_clustered(FULL_NODES, seed=0,
+                                                 device=dev)
+    others = loss_instances(graph, assign, seed=1)
     gen_s = time.perf_counter() - t0
     big = Problem.create(graph, data, 1e-3)
     kernels = [phase_full_size(torch, dev, cfg, big, w_true, gen_s)]
+    kernels += phase_full_size_variants(torch, dev, cfg, big, w_true, others)
+    phase_full_size_tol(torch, cfg, big)
     kernels += phase_unfused_full_size(torch, dev, cfg, big, w_true)
     for k in kernels:
         k["max_abs_err"] = max(k["max_abs_err"], errs[k["name"]])

@@ -16,10 +16,17 @@ one :class:`~repro_torch.api.problem.SolveResult`:
                  Each op is the CUDA kernel on the card and its plain
                  version on the CPU.
 
+``SolverConfig.tol`` stops a solve at the first metric block whose
+eq.-11 residual is <= tol, with the test kept on the device
+(:func:`repro_torch.engine.loop.device_loop`): a tol solve makes exactly
+one device->host transfer, the :func:`~repro_torch.engine.loop.
+device_fetch` of its stopping iteration.  ``dtype="bfloat16"`` is a
+storage policy of the fused path (bf16 state and prox parameters, f32
+arithmetic); the dense and unfused paths run float32 and refuse it.
+
 The reference's ``sharded``, ``sharded_fused`` and ``federated``
-backends, ``tol`` early stopping and ``dtype="bfloat16"`` storage are not
-in the port yet: each raises ``NotImplementedError`` naming the
-``ROADMAP.md`` item that brings it.
+backends are not in the port yet: each raises ``NotImplementedError``
+naming the ``ROADMAP.md`` item that brings it.
 """
 from __future__ import annotations
 
@@ -35,8 +42,8 @@ from repro_torch.api.regularizers import TotalVariation
 from repro_torch.core.graph import graph_signal_mse, plan_edge_blocks
 from repro_torch.core.losses import NodeData
 from repro_torch.core.partition import gather_padded
-from repro_torch.engine import (DenseExecutor, certificate, pd_residual,
-                                scan_solve)
+from repro_torch.engine import (DenseExecutor, certificate, device_fetch,
+                                device_loop, pd_residual, scan_solve)
 from repro_torch.engine import pd_step as engine_pd_step
 from repro_torch.kernels import ops
 
@@ -76,25 +83,54 @@ def _diagnostics(problem: Problem, w, u, config: SolverConfig) -> dict:
     return certificate(problem, w, u)
 
 
-def _check_config(config: SolverConfig) -> None:
-    """Cadence, plus the loud refusal of what this slice does not run."""
+def _check_cadence(config: SolverConfig) -> None:
     if config.num_iters % config.metric_every:
         raise ValueError(
             f"metric_every={config.metric_every} must divide "
             f"num_iters={config.num_iters}")
-    if config.tol is not None:
-        raise NotImplementedError(
-            "SolverConfig.tol (the device-resident stopping loop and its "
-            "one-transfer contract) is not ported yet: ROADMAP.md Open "
-            "items §1 item 6")
-    if config.dtype == "bfloat16":
-        raise NotImplementedError(
-            "SolverConfig.dtype='bfloat16' storage is not ported yet: "
-            "ROADMAP.md Open items §1 item 6")
-    if config.dtype != "float32":
+
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _storage_dtype(config: SolverConfig, *, fused: bool) -> torch.dtype:
+    """Validate ``SolverConfig.dtype`` for the chosen execution path.
+
+    bf16 is a *fused-path* storage policy (state and prox parameters
+    stored bf16, arithmetic f32 — see ``kernels.ref.pd_window_step``);
+    every other path runs f32 and refuses a reduced dtype loudly instead
+    of silently ignoring it.
+    """
+    name = config.dtype
+    if isinstance(name, torch.dtype):
+        name = str(name).removeprefix("torch.")
+    if name not in _DTYPES:
         raise ValueError(
             f"unsupported SolverConfig.dtype {config.dtype!r}; use "
             "'float32' or 'bfloat16'")
+    if name == "bfloat16" and not fused:
+        raise NotImplementedError(
+            "SolverConfig.dtype='bfloat16' is a storage policy of the "
+            "fused pallas path; this path runs float32 (use "
+            "backend='pallas' with fused=True, or dtype='float32')")
+    return _DTYPES[name]
+
+
+def _with_iterations(diag: dict, config: SolverConfig,
+                     iterations: int) -> dict:
+    """Record iterations-to-tolerance on tol runs (host-side ints)."""
+    if config.tol is not None and diag is not None:
+        diag = dict(diag)
+        diag["iterations"] = int(iterations)
+    return diag
+
+
+def _fetch_stop(its, traces: tuple, config: SolverConfig):
+    """The tol solve's single device->host transfer (the stopping
+    iteration), then the traces truncated to the blocks that ran."""
+    iterations = device_fetch(its)
+    nb = iterations // config.metric_every
+    return iterations, tuple(t[:nb] for t in traces)
 
 
 def _initial_state(problem: Problem, w0, u0):
@@ -169,19 +205,80 @@ def _dense_scan_impl(problem: Problem, w0, u0, w_true, *, num_iters: int,
     return w, u, obj_trace, mse_trace, res_trace
 
 
+def _dense_block_fn(problem: Problem, w_true, params, *, rho: float,
+                    metric_every: int, clip_fn, affine_fn):
+    """Build ``run_block(state, active)`` for the device-resident tol
+    loop: ``metric_every`` engine steps, metrics, and the block-max
+    residual.
+
+    ``params`` is the loss's prox parameters, set up once per solve by
+    the caller (None falls back to ``make_prox``).  The dense step has
+    no stop word, so once ``active`` is clear the block still runs and
+    its result is dropped (``torch.where``): on the card a dense tol
+    solve computes its whole budget, where the reference's while loop
+    stops computing.
+    """
+    graph, data, lam = problem.graph, problem.data, problem.lam
+    loss, reg = problem.loss, problem.regularizer
+    tau = graph.primal_stepsizes()
+    sigma = graph.dual_stepsizes()
+    if params is None:
+        prox = loss.make_prox(data, tau, affine_fn=affine_fn)
+    else:
+        def prox(v):
+            return loss.prox_apply(params, v, affine_fn=affine_fn)
+    metrics = make_metrics_fn(loss, reg, graph, data, lam, w_true)
+    executor = DenseExecutor(graph)
+
+    def run_block(state, active):
+        w, u = state
+        res = None
+        for _ in range(metric_every):
+            w_n, u_n = engine_pd_step(executor, prox, reg, lam, tau, sigma,
+                                      w, u, rho=rho, clip_fn=clip_fn)
+            r = pd_residual(tau, sigma, w, u, w_n, u_n)
+            res = r if res is None else torch.maximum(res, r)
+            w, u = w_n, u_n
+        w = torch.where(active, w, state[0])
+        u = torch.where(active, u, state[1])
+        obj, mse = metrics(w)
+        return (w, u), (obj, mse, res), res
+
+    return run_block
+
+
 def _solve_dense(problem: Problem, config: SolverConfig, *, w0=None, u0=None,
                  w_true=None, clip_fn=None, affine_fn=None) -> SolveResult:
-    _check_config(config)
+    _check_cadence(config)
+    _storage_dtype(config, fused=False)
     w0, u0 = _initial_state(problem, w0, u0)
-    w, u, obj, mse, res = _dense_scan_impl(
-        problem, w0, u0, w_true, num_iters=config.num_iters,
-        rho=config.rho, metric_every=config.metric_every, clip_fn=clip_fn,
-        affine_fn=affine_fn, record_residual=config.record_residual)
+    if config.tol is None or config.num_iters == 0:
+        w, u, obj, mse, res = _dense_scan_impl(
+            problem, w0, u0, w_true, num_iters=config.num_iters,
+            rho=config.rho, metric_every=config.metric_every,
+            clip_fn=clip_fn, affine_fn=affine_fn,
+            record_residual=config.record_residual)
+        iterations = config.num_iters
+    else:
+        # per-solve prox setup happens once, not once per block
+        try:
+            params = problem.loss.prox_setup(
+                problem.data, problem.graph.primal_stepsizes())
+        except NotImplementedError:
+            params = None
+        run_block = _dense_block_fn(
+            problem, w_true, params, rho=config.rho,
+            metric_every=config.metric_every, clip_fn=clip_fn,
+            affine_fn=affine_fn)
+        (w, u), traces, its = device_loop(
+            run_block, (w0, u0), num_iters=config.num_iters,
+            metric_every=config.metric_every, tol=config.tol)
+        iterations, (obj, mse, res) = _fetch_stop(its, traces, config)
+    diag = _with_iterations(_diagnostics(problem, w, u, config), config,
+                            iterations)
     return SolveResult(w=w, u=u, objective=obj,
                        mse=None if w_true is None else mse,
-                       lam=problem.lam,
-                       diagnostics=_diagnostics(problem, w, u, config),
-                       residual=res)
+                       lam=problem.lam, diagnostics=diag, residual=res)
 
 
 def resolve_kernel_hooks(problem: Problem, config: SolverConfig,
@@ -250,10 +347,10 @@ def _fused_enabled(problem: Problem, config: SolverConfig) -> bool:
 def _fused_supported(problem: Problem, config: SolverConfig) -> bool:
     """The fused step needs windowable prox parameters and an
     edge-elementwise dual resolvent; on the card the loss must also run
-    inside the kernel (``kernel_safe``: lasso and logistic do not yet, so
-    they run the unfused path there, as a loss with ``kernel_safe=False``
-    does on the reference's TPU).  Custom kernel hooks disable fusion
-    (they target the unfused engine)."""
+    inside the kernel (``kernel_safe``: every registered loss does, so
+    only a loss without ``prox_setup`` or a ``kernel_safe=False`` one
+    runs the unfused path there, as on the reference's TPU).  Custom
+    kernel hooks disable fusion (they target the unfused engine)."""
     loss, reg = problem.loss, problem.regularizer
     has_setup = type(loss).prox_setup is not Loss.prox_setup
     kernel_ok = problem.device.type == "cpu" or loss.kernel_safe
@@ -272,31 +369,46 @@ def _fused_window_cap() -> int:
     return 1 << 62
 
 
-def _fused_window_fits(problem: Problem) -> bool:
-    """Plan (or fetch) the graph's layout and check the window cap."""
+def _fused_window_fits(problem: Problem,
+                       config: SolverConfig | None = None) -> bool:
+    """Plan (or fetch) the graph's layout and check the window cap.
+
+    The estimate is dtype-aware, as the reference's: the storage
+    policy's itemsize scales the state and prox-parameter bytes
+    (``EdgeBlockLayout.window_bytes``) and feeds the block-size
+    auto-tuner.
+    """
     try:
         param_floats = problem.loss.prox_param_floats(
             problem.data.x.shape[1], problem.num_features)
     except NotImplementedError:
         return False
+    itemsize = 4
+    if config is not None:
+        itemsize = _storage_dtype(config, fused=True).itemsize
     cap = _fused_window_cap()
     lt = _graph_layout(problem.graph, window_hint=(
-        problem.num_features, param_floats, 4, cap))
-    return lt.window_bytes(problem.num_features,
-                           param_floats=param_floats) <= cap
+        problem.num_features, param_floats, itemsize, cap))
+    return lt.window_bytes(problem.num_features, param_floats=param_floats,
+                           itemsize=itemsize) <= cap
 
 
 def _should_fuse(problem: Problem, config: SolverConfig) -> bool:
     """The one fused-dispatch gate."""
     return (_fused_enabled(problem, config)
             and _fused_supported(problem, config)
-            and _fused_window_fits(problem))
+            and _fused_window_fits(problem, config))
 
 
-def _fused_setup(graph, data, lam, w_true, *, loss, reg, layout):
+def _fused_setup(graph, data, lam, w_true, *, loss, reg, layout,
+                 dtype: torch.dtype = torch.float32):
     """Per-solve prep for the fused engine: layout padding, stepsizes,
     windowed prox parameters, and the metric fn (original node order,
-    the dense engine's formulas)."""
+    the dense engine's formulas, in f32).
+
+    ``dtype`` is the storage policy: float prox-parameter stores are cast
+    to it, while tau, sigma, la and src/dst stay f32 or int.
+    """
     lt = layout
     # the paper-eq.-13 stepsizes come from the one source of truth
     # (EmpiricalGraph), gathered into layout order (pad nodes: tau 1)
@@ -313,8 +425,10 @@ def _fused_setup(graph, data, lam, w_true, *, loss, reg, layout):
                       labeled_mask=gather_nodes(data.labeled_mask))
     params = loss.prox_setup(data_l, tau_l)
     pkeys = tuple(sorted(params))
-    params_s = tuple(lt.pad_node_store(params[k]).contiguous()
-                     for k in pkeys)
+    params_s = tuple(
+        lt.pad_node_store(params[k]).to(
+            dtype if params[k].is_floating_point() else params[k].dtype)
+        .contiguous() for k in pkeys)
     tau_s = lt.pad_node_store(tau_l[:, None])
     src2, dst2 = lt.src[:, None], lt.dst[:, None]
     sig2 = sig_l[:, None]
@@ -323,61 +437,79 @@ def _fused_setup(graph, data, lam, w_true, *, loss, reg, layout):
     node_inv = lt.node_inv.long()
 
     def metrics(w_l):
-        return metrics_fn(w_l[node_inv])
+        return metrics_fn(w_l[node_inv].to(torch.float32))
 
     return (params_s, pkeys, tau_l, tau_s, sig_l, sig2, src2, dst2, la2,
             metrics)
 
 
 def _fused_run_iters(lt, inc_e, inc_s, params_s, pkeys, tau_s, src2, dst2,
-                     sig2, la2, *, loss, reg, rho):
-    """Build ``run_iters(state, iters)`` advancing the padded stores.
+                     sig2, la2, *, loss, reg, rho,
+                     compute_residual: bool = False):
+    """Build ``run_iters(state, iters, active=None)`` advancing the padded
+    stores.
 
-    The stores are the solve's own tensors: each call's fresh owned
-    outputs are written back into them in place (the halo padding rows
-    are never written), as the reference does with a
-    ``dynamic_update_slice``.
+    The stores are the solve's own tensors: each launch writes its owned
+    rows in place (``out`` = the owned rows; the halo padding rows are
+    never written), as the reference does with a ``dynamic_update_slice``.
+    With ``compute_residual`` each call also returns the f32 eq.-11
+    residual the kernel accumulated: ``(state, residual)``.  ``active`` is
+    the tol solve's stop word (see ``kernels.ref.fused_pd_step_ref``).
     """
     bv, eb = lt.block_nodes, lt.block_edges
     kn, klo, khi = lt.kn, lt.klo, lt.khi
+    nodes, edges = lt.num_blocks * bv, lt.num_blocks * eb
 
-    def run_iters(state, iters):
+    def run_iters(state, iters, active=None):
         w_store, u_store = state
-        w_new, u_new = ops.pd_step(
+        out = ops.pd_step(
             w_store, u_store, inc_e, inc_s, params_s, tau_s, src2, dst2,
             sig2, la2, loss=loss, reg=reg, pkeys=pkeys, block_nodes=bv,
-            block_edges=eb, kn=kn, klo=klo, khi=khi, rho=rho, iters=iters)
-        w_store[:w_new.shape[0]].copy_(w_new)
-        u_store[klo * eb:klo * eb + u_new.shape[0]].copy_(u_new)
-        return state
+            block_edges=eb, kn=kn, klo=klo, khi=khi, rho=rho, iters=iters,
+            compute_residual=compute_residual, active=active,
+            out=(w_store[:nodes], u_store[klo * eb:klo * eb + edges]))
+        return (state, out[2]) if compute_residual else state
 
     return run_iters
 
 
+def _fused_stores(lt, w0_l, u0_l, dtype):
+    """The padded (w_store, u_store) of a solve in the storage dtype."""
+    eb, n = lt.block_edges, w0_l.shape[1]
+    zeros = u0_l.new_zeros
+    w_store0 = lt.pad_node_store(w0_l).to(dtype)
+    u_store0 = torch.cat([zeros((lt.klo * eb, n)), u0_l,
+                          zeros((lt.khi * eb, n))]).to(dtype)
+    return w_store0, u_store0
+
+
+def _owned(lt, state):
+    """The owned rows (w_l, u_l) of the padded stores."""
+    w_store, u_store = state
+    lo = lt.klo * lt.block_edges
+    return w_store[:lt.nodes_pad], u_store[lo:lo + lt.edges_pad]
+
+
 def _fused_scan_impl(problem: Problem, w0_l, u0_l, w_true, *, layout,
                      num_iters: int, rho: float, metric_every: int,
-                     record_residual: bool = False):
+                     record_residual: bool = False,
+                     dtype: torch.dtype = torch.float32):
     """The fused engine: loop the fused PD step over the edge-blocked
     layout, recording metrics on the cadence.  A single-block layout
     runs each metric block as one launch (``iters=metric_every``).
-    Returns owned-layout ``(w_l, u_l, obj, mse, res)``."""
+    ``dtype`` is the storage policy of the state and the prox
+    parameters.  Returns owned-layout ``(w_l, u_l, obj, mse, res)``, the
+    state in the storage dtype."""
     lt = layout
     (params_s, pkeys, tau_l, tau_s, sig_l, sig2, src2, dst2, la2,
      metrics) = _fused_setup(problem.graph, problem.data, problem.lam,
                              w_true, loss=problem.loss,
-                             reg=problem.regularizer, layout=lt)
+                             reg=problem.regularizer, layout=lt, dtype=dtype)
 
     run_iters = _fused_run_iters(
         lt, lt.pad_node_store(lt.inc_edges), lt.pad_node_store(lt.inc_signs),
         params_s, pkeys, tau_s, src2, dst2, sig2, la2, loss=problem.loss,
         reg=problem.regularizer, rho=rho)
-
-    eb, klo, khi = lt.block_edges, lt.klo, lt.khi
-
-    def owned(state):
-        w_store, u_store = state
-        return (w_store[:lt.nodes_pad],
-                u_store[klo * eb:klo * eb + lt.edges_pad])
 
     run_block, residual_fn = run_iters, None
     if record_residual:
@@ -387,31 +519,70 @@ def _fused_scan_impl(problem: Problem, w0_l, u0_l, w_true, *, layout,
             return run_iters(tuple(t.clone() for t in state), iters)
 
         def residual_fn(prev, new):
-            w_p, u_p = owned(prev)
-            w_n, u_n = owned(new)
-            return pd_residual(tau_l, sig_l, w_p, u_p, w_n, u_n)
+            f32 = torch.float32
+            w_p, u_p = _owned(lt, prev)
+            w_n, u_n = _owned(lt, new)
+            return pd_residual(tau_l, sig_l, w_p.to(f32), u_p.to(f32),
+                               w_n.to(f32), u_n.to(f32))
 
-    n = w0_l.shape[1]
-    zeros = u0_l.new_zeros
-    w_store0 = lt.pad_node_store(w0_l)
-    u_store0 = torch.cat([zeros((klo * eb, n)), u0_l, zeros((khi * eb, n))])
     state, traces = scan_solve(
         run_block, lambda s: metrics(s[0][:lt.nodes_pad]),
-        (w_store0, u_store0), num_iters=num_iters,
+        _fused_stores(lt, w0_l, u0_l, dtype), num_iters=num_iters,
         metric_every=metric_every, multi_iter_block=(lt.num_blocks == 1),
         residual_fn=residual_fn)
     if record_residual:
         (obj_trace, mse_trace), res_trace = traces
     else:
         (obj_trace, mse_trace), res_trace = traces, None
-    w_l, u_l = owned(state)
+    w_l, u_l = _owned(lt, state)
     return w_l, u_l, obj_trace, mse_trace, res_trace
+
+
+def _fused_tol_impl(problem: Problem, w0_l, u0_l, w_true, *, layout,
+                    num_iters: int, rho: float, metric_every: int,
+                    tol: float, dtype: torch.dtype = torch.float32):
+    """The fused tol engine: :func:`device_loop` over metric blocks with
+    the eq.-11 residual computed in the kernel and the stop word read by
+    every launch, so the stopping signal never leaves the device.  A
+    single-block layout runs each metric block as one launch
+    (``iters=metric_every``) whose running-max residual rides the
+    kernel's carry; otherwise the block's launches each return their
+    residual and the block takes the max.  Returns owned-layout
+    ``(w_l, u_l, traces, iterations)`` with ``iterations`` on the
+    device."""
+    lt = layout
+    (params_s, pkeys, _, tau_s, _, sig2, src2, dst2, la2, metrics) = \
+        _fused_setup(problem.graph, problem.data, problem.lam, w_true,
+                     loss=problem.loss, reg=problem.regularizer, layout=lt,
+                     dtype=dtype)
+    run_iters = _fused_run_iters(
+        lt, lt.pad_node_store(lt.inc_edges), lt.pad_node_store(lt.inc_signs),
+        params_s, pkeys, tau_s, src2, dst2, sig2, la2, loss=problem.loss,
+        reg=problem.regularizer, rho=rho, compute_residual=True)
+
+    def run_block(state, active):
+        if lt.num_blocks == 1:
+            state, res = run_iters(state, metric_every, active)
+        else:
+            res = None
+            for _ in range(metric_every):
+                state, r = run_iters(state, 1, active)
+                res = r if res is None else torch.maximum(res, r)
+        obj, mse = metrics(state[0][:lt.nodes_pad])
+        return state, (obj, mse, res), res
+
+    state, traces, its = device_loop(
+        run_block, _fused_stores(lt, w0_l, u0_l, dtype),
+        num_iters=num_iters, metric_every=metric_every, tol=tol)
+    w_l, u_l = _owned(lt, state)
+    return w_l, u_l, traces, its
 
 
 def _solve_fused(problem: Problem, config: SolverConfig, *, w0=None,
                  u0=None, w_true=None) -> SolveResult:
     """Solve via the fused PD kernel on the edge-blocked graph layout."""
-    _check_config(config)
+    _check_cadence(config)
+    dtype = _storage_dtype(config, fused=True)
     lt = _graph_layout(problem.graph)
     n, dev = problem.num_features, problem.device
 
@@ -426,18 +597,25 @@ def _solve_fused(problem: Problem, config: SolverConfig, *, w0=None,
                                           device=dev)
                           * lt.edge_flip[:, None])
 
-    w_l, u_l, obj, mse, res = _fused_scan_impl(
-        problem, w0_l, u0_l, w_true, layout=lt,
-        num_iters=config.num_iters, rho=config.rho,
-        metric_every=config.metric_every,
-        record_residual=config.record_residual)
-    w = w_l[lt.node_inv.long()]
-    u = u_l[edge_pos] * lt.edge_flip[:, None]
+    run = dict(layout=lt, num_iters=config.num_iters, rho=config.rho,
+               metric_every=config.metric_every, dtype=dtype)
+    if config.tol is None or config.num_iters == 0:
+        w_l, u_l, obj, mse, res = _fused_scan_impl(
+            problem, w0_l, u0_l, w_true,
+            record_residual=config.record_residual, **run)
+        iterations = config.num_iters
+    else:
+        w_l, u_l, traces, its = _fused_tol_impl(
+            problem, w0_l, u0_l, w_true, tol=config.tol, **run)
+        iterations, (obj, mse, res) = _fetch_stop(its, traces, config)
+    f32 = torch.float32
+    w = w_l[lt.node_inv.long()].to(f32)
+    u = u_l[edge_pos].to(f32) * lt.edge_flip[:, None]
+    diag = _with_iterations(_diagnostics(problem, w, u, config), config,
+                            iterations)
     return SolveResult(w=w, u=u, objective=obj,
                        mse=None if w_true is None else mse,
-                       lam=problem.lam,
-                       diagnostics=_diagnostics(problem, w, u, config),
-                       residual=res)
+                       lam=problem.lam, diagnostics=diag, residual=res)
 
 
 @register_backend("pallas")
@@ -447,15 +625,15 @@ def solve_pallas(problem: Problem, config: SolverConfig, *, w0=None,
 
     Default on the card (opt-out via ``fused=False`` / ``REPRO_FUSED=0``):
     the *fused* primal-dual kernel — one pass per iteration over the
-    edge-blocked graph layout (``kernels/pd_step.py``) — for the squared
-    loss with ``tv``/``tv2`` (on the CPU, its plain version runs every
-    loss).  Otherwise the dense path with the unfused kernels wired in:
+    edge-blocked graph layout (``kernels/pd_step.py``) — for every
+    registered loss (squared, lasso, logistic) with ``tv``/``tv2``, in
+    float32 or bfloat16 storage (on the CPU, its plain version).
+    Otherwise the dense path with the unfused kernels wired in:
     the dual clip through ``kernels.ops.tv_prox`` (TV regularizer only)
     and the squared loss's affine prox through
     ``kernels.ops.batched_affine``; ``config.clip_fn``/``config.affine_fn``
     override either (and disable fusion).
     """
-    _check_config(config)
     if _should_fuse(problem, config):
         return _solve_fused(problem, config, w0=w0, u0=u0, w_true=w_true)
     clip_fn, affine_fn = resolve_kernel_hooks(problem, config, True)

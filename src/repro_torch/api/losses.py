@@ -19,8 +19,8 @@ Implemented losses (paper §4.1-4.3):
 ``prox_apply`` takes any leading axes (``...``), so the same code runs on
 the dense (V, n) state and on the fused plain version's (B, NW, n)
 windows.  ``kernel_safe`` means the loss's prox runs inside the port's
-CUDA ``fused_pd_step``; only the squared loss's does so far, so on the
-card the lasso and logistic losses run the unfused path.
+CUDA ``fused_pd_step``: all three registered losses do, as in the
+reference, so each of them fuses on the card.
 """
 from __future__ import annotations
 
@@ -32,6 +32,11 @@ import torch
 from repro_torch.core.losses import NodeData
 
 LOSSES: dict[str, type] = {}
+
+# nodes per batched eigvalsh call of the lasso's set-up: on the H100
+# (CUDA 12.8) cuSOLVER's batched eigensolver takes 16384 4x4 matrices
+# and refuses 32768 (CUSOLVER_STATUS_INVALID_VALUE)
+EIGVALSH_BATCH = 1 << 14
 
 
 def register_loss(name: str):
@@ -175,7 +180,9 @@ class SquaredLoss(Loss):
         n = data.num_features
         eye = torch.eye(n, dtype=data.x.dtype, device=data.x.device)
         a = eye[None] + c[..., None] * q
-        p = torch.linalg.inv(a)
+        # inv_ex: the same inverse without the host-side check of its
+        # info code, so set-up on the card never synchronizes
+        p = torch.linalg.inv_ex(a).inverse
         b = c * xty
         lab = data.labeled_mask
         # row-major, as the batched_affine kernel reads it (the batched
@@ -209,9 +216,9 @@ class LassoLoss(Loss):
     alpha: float = 0.0
     num_inner: int = 50
 
-    # the fused CUDA kernel has no ISTA prox yet (ROADMAP.md Open items §2
-    # item 1), so on the card this loss runs the unfused path
-    kernel_safe: ClassVar[bool] = False
+    # the fused CUDA kernel runs the ISTA prox (its params are the sorted
+    # keys below, plus alpha and num_inner)
+    kernel_safe: ClassVar[bool] = True
 
     def node_values(self, data, w):
         return (SquaredLoss().node_values(data, w)
@@ -222,8 +229,10 @@ class LassoLoss(Loss):
         q = torch.einsum("vmn,vmk->vnk", xm, data.x)
         xty = torch.einsum("vmn,vm->vn", xm, data.y)
         m = data.counts()
-        # lambda_max via eigvalsh (set-up only; n is small)
-        lam_max = torch.linalg.eigvalsh(q)[:, -1]
+        # lambda_max via eigvalsh (set-up only; n is small), in batches
+        # of EIGVALSH_BATCH nodes
+        lam_max = torch.cat([torch.linalg.eigvalsh(c)[:, -1]
+                             for c in q.split(EIGVALSH_BATCH)])
         lips = 2.0 * lam_max / m + 1.0 / tau                  # (V,)
         return {"q": q, "xty": xty, "m": m[:, None],
                 "step": (1.0 / lips)[:, None], "tau": tau[:, None],
@@ -258,9 +267,10 @@ class LogisticLoss(Loss):
 
     num_inner: int = 8
 
-    # the fused CUDA kernel has no Newton prox yet (ROADMAP.md Open items
-    # §2 item 1), so on the card this loss runs the unfused path
-    kernel_safe: ClassVar[bool] = False
+    # the fused CUDA kernel runs the Newton prox with the unrolled
+    # Cholesky (its params are the sorted keys below, plus num_inner; the
+    # sample count is x.shape[1])
+    kernel_safe: ClassVar[bool] = True
 
     def node_values(self, data, w):
         logits = torch.einsum("vmn,vn->vm", data.x, w)

@@ -74,8 +74,14 @@ class SolverConfig:
       num_iters:    primal-dual iterations (ignored when continuation=True).
       rho:          Krasnosel'skii-Mann over-relaxation in (0, 2).
       metric_every: objective/MSE cadence; must divide the iteration count.
-      tol:          residual-based early stopping — not in this slice
-                    (raises ``NotImplementedError``).
+      tol:          residual-based early stopping: the solve stops after
+                    the first metric block whose eq.-11 residual (the
+                    block max) is <= tol, with the test kept on the
+                    device; the stopping iteration (the solve's one
+                    device->host fetch) is ``diagnostics["iterations"]``
+                    and the block residuals are ``SolveResult.residual``.
+                    None runs the whole budget.  With continuation both
+                    phases stop on it.
       record_residual: record the eq.-11 fixed-point residual in
                     ``SolveResult.residual`` at the metric cadence.
 
@@ -93,17 +99,20 @@ class SolverConfig:
                    wired in (the unfused path).  None resolves to True
                    when the problem lives on CUDA (the card takes the
                    TPU's role), False elsewhere; ``REPRO_FUSED`` (env)
-                   overrides the default either way.  Falls back to the
-                   unfused path for a loss whose prox the CUDA kernel
-                   does not run (lasso, logistic) or when a kernel hook
-                   is set.
+                   overrides the default either way.  Every registered
+                   loss fuses; a loss without ``prox_setup`` or a set
+                   kernel hook falls back to the unfused path.
       clip_fn / affine_fn: custom kernel hooks for the dual clip and the
                    affine primal update (dense/pallas backends; the
                    pallas backend fills unset hooks with the port's
                    kernels, and a set hook disables fusion).
 
-    Precision: ``dtype`` "float32" only in this slice; "bfloat16"
-    storage raises ``NotImplementedError``.
+    Precision: ``dtype`` "float32" (default) or "bfloat16".  bf16 is a
+    storage policy of the fused path: the state and the float prox
+    parameters are stored bf16 while every sum, prox solve, resolvent
+    and residual runs in f32 (``kernels.ref.pd_window_step``); results
+    come back f32.  The dense and unfused paths refuse it
+    (``NotImplementedError``).
     """
 
     num_iters: int = 500

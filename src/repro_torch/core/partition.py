@@ -98,5 +98,7 @@ def gather_padded(arr: torch.Tensor, perm: torch.Tensor,
     perm = perm.to(device=arr.device, dtype=torch.long)
     out = arr[perm.clamp(0, max(arr.shape[0] - 1, 0))]
     valid = (perm >= 0).reshape((-1,) + (1,) * (arr.ndim - 1))
-    return torch.where(valid, out, torch.tensor(fill, dtype=arr.dtype,
-                                                device=arr.device))
+    # torch.full, not torch.tensor: no host-to-device copy, so a solve's
+    # set-up never synchronizes the card
+    return torch.where(valid, out, torch.full((), fill, dtype=arr.dtype,
+                                              device=arr.device))

@@ -1,0 +1,58 @@
+// Fused primal-dual step for Hopper: the launch arguments shared by the
+// entry point (pd_step.cu) and the per-loss translation units
+// (pd_step.cu: squared, pd_step_lasso.cu, pd_step_logistic.cu), which
+// kernels/_build.py compiles in parallel.  See pd_step_impl.cuh for what
+// the kernel computes and how.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace repro_pd {
+
+enum LossKind { kSquared = 0, kLasso = 1, kLogistic = 2 };
+enum Storage { kF32 = 0, kBF16 = 1 };
+
+// Mirrored field for field by kernels/pd_step.py:_PdArgs (ctypes).
+// "T" below is the storage type (float or __nv_bfloat16).
+struct PdArgs {
+  const void* w_in;        // T (>= num_nodes, n) node store
+  const void* u_in;        // T (u_rows, n) edge store (storage ids)
+  const int* inc_edges;    // (>= num_nodes, max_deg) storage edge ids
+  const float* inc_signs;  // (>= num_nodes, max_deg) +1 / -1 / 0
+  const void* prm[6];      // T: the loss's prox parameters, sorted keys
+  const float* tau;        // (>= num_nodes,) primal steps
+  const int* src;          // (num_edges,) layout node ids
+  const int* dst;
+  const float* sigma;      // (num_edges,) dual steps
+  const float* la;         // (num_edges,) lam * A_e
+  void* w_out;             // T (num_nodes, n)
+  void* u_out;             // T (num_edges, n)
+  float* w_carry;          // f32 (num_nodes, n) carry of iters > 1
+  float* u_carry;          // f32 (num_edges, n)
+  float* z;                // f32 (num_nodes, n) scratch: 2 w+ - w
+  float* res;              // (1,) residual, zeroed by the caller
+  const unsigned char* active;  // null, or the stop word: 0 = write nothing
+  long long num_nodes;     // nb * BV
+  long long num_edges;     // nb * EB
+  long long u_offset;      // klo * EB: storage row of owned edge 0
+  long long u_rows;        // rows of the edge store
+  int n;
+  int max_deg;
+  int reg_kind;            // 0: tv (clip), 1: tv2 (scaling)
+  int relax;               // rho != 1
+  float rho;
+  int iters;
+  int compute_residual;
+  int loss_kind;           // LossKind
+  int storage;             // Storage
+  int num_samples;         // logistic: samples per node (x.shape[1])
+  int num_inner;           // lasso / logistic inner iterations
+  float alpha;             // lasso l1 weight
+};
+
+// One per loss, each defined in its own translation unit.
+cudaError_t pd_launch_squared(const PdArgs& a, cudaStream_t s);
+cudaError_t pd_launch_lasso(const PdArgs& a, cudaStream_t s);
+cudaError_t pd_launch_logistic(const PdArgs& a, cudaStream_t s);
+
+}  // namespace repro_pd

@@ -5,18 +5,19 @@
     fixed-point :func:`pd_residual`,
   * :mod:`repro_torch.engine.executors` — the dense gather-sum and the
     edge-blocked window executors,
-  * :mod:`repro_torch.engine.loop` — metric cadence, iteration caps and
-    continuation defaults.
+  * :mod:`repro_torch.engine.loop` — metric cadence, the device-resident
+    tol loop and its one fetch, iteration caps and continuation defaults.
 """
 from repro_torch.engine.executors import DenseExecutor, WindowExecutor
-from repro_torch.engine.loop import (capped, default_warm_lam, iter_cap,
-                                     scan_solve)
+from repro_torch.engine.loop import (capped, default_warm_lam, device_fetch,
+                                     device_loop, iter_cap, scan_solve)
 from repro_torch.engine.step import (GraphExecutor, certificate,
                                      ensure_column, optimality_gap,
                                      pd_residual, pd_step)
 
 __all__ = [
     "DenseExecutor", "GraphExecutor", "WindowExecutor", "capped",
-    "certificate", "default_warm_lam", "ensure_column", "iter_cap",
-    "optimality_gap", "pd_residual", "pd_step", "scan_solve",
+    "certificate", "default_warm_lam", "device_fetch", "device_loop",
+    "ensure_column", "iter_cap", "optimality_gap", "pd_residual",
+    "pd_step", "scan_solve",
 ]

@@ -3,6 +3,11 @@
   * **metric cadence** — :func:`scan_solve` records traces every
     ``metric_every`` iterations, with the reference's three block shapes
     (``repro.engine.loop.scan_solve``) as a Python loop,
+  * **device-resident early stopping** — :func:`device_loop` drives a
+    ``SolverConfig.tol`` solve with its stopping test kept on the device
+    (the reference runs a ``lax.while_loop``), and
+    :func:`device_fetch` is the one device->host transfer such a solve
+    makes,
   * **iteration caps and warm starts** — the ``REPRO_SOLVER_MAX_ITERS``
     env cap and the continuation warm-lambda default used by
     ``Solver.run``.
@@ -98,3 +103,69 @@ def _stack(records: list, metrics: Callable, state) -> tuple:
     shape = metrics(state)
     return tuple(torch.zeros(0, dtype=m.dtype, device=m.device)
                  for m in shape)
+
+
+def device_loop(run_block: Callable, state0, *, num_iters: int,
+                metric_every: int, tol: float):
+    """Drive a tol solve with the stopping test on the device.
+
+    The reference runs its metric blocks in a ``lax.while_loop``; PyTorch
+    has no device-side loop the port can rely on, so this enqueues every
+    block of the budget and keeps a device flag ``active`` instead.
+    ``run_block(state, active) -> (state, records, residual)`` advances
+    ``metric_every`` iterations where ``active`` is set and leaves the
+    state exactly as it is where it is clear (the fused kernel reads the
+    flag and writes nothing; the dense block freezes its state with
+    ``torch.where``), and returns the block's records (a tuple of scalar
+    tensors) and its stopping residual (the max eq.-11 residual over the
+    block).  The flag is cleared on the device after the first block
+    whose residual is <= tol, so, as in the reference, block 0 always
+    runs and the solve stops after the first block at or below tol, or
+    at the end of the budget.
+
+    Trace buffers are preallocated at the full budget (``num_iters //
+    metric_every`` records) and written at the Python-int block index;
+    the blocks run are counted on the device.  Nothing here reads a
+    device value on the host: the caller's single :func:`device_fetch`
+    of the returned iteration count is the solve's one transfer, after
+    which it truncates the traces.  Returns ``(state, traces,
+    iterations)`` with ``iterations`` a device int32 scalar.
+    """
+    num_blocks = num_iters // metric_every
+    dev = state0[0].device
+    active = torch.ones((), dtype=torch.bool, device=dev)
+    blocks = torch.zeros((), dtype=torch.int32, device=dev)
+    state, traces = state0, None
+    for k in range(num_blocks):
+        blocks.add_(active)
+        state, records, res = run_block(state, active)
+        if traces is None:
+            traces = tuple(r.new_zeros((num_blocks,) + tuple(r.shape))
+                           for r in records)
+        for buf, r in zip(traces, records):
+            buf[k] = r
+        active.logical_and_(res > tol)
+    return state, traces, blocks * metric_every
+
+
+def device_fetch(t: torch.Tensor) -> int:
+    """The solver stack's one deliberate device->host transfer: a tol
+    solve's stopping iteration, as a Python int.
+
+    Every tol solve routes its single fetch through here, and
+    ``device_fetch.calls`` counts them.  It is the one call of a solve
+    that may synchronize: under ``torch.cuda.set_sync_debug_mode`` it
+    lifts the mode for its own copy and restores it.
+    """
+    device_fetch.calls += 1
+    if t.device.type != "cuda":
+        return int(t.numpy())
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        return int(t.to("cpu").numpy())
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+
+
+device_fetch.calls = 0

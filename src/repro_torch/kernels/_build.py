@@ -4,11 +4,11 @@ Every ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` — one
 ``nvcc -c`` per source, all started together — and the objects are
 linked into one shared library with plain C entry points under
 ``build/repro_torch_kernels/`` at the repository root.  The library is
-named by a hash of every source and the flags, so an edited source
-rebuilds.  It is loaded with ``ctypes``; each kernel wrapper binds its
-own entry point through :func:`entry`.  Nothing is built or loaded at
-import: this runs on the first launch, on a machine with the CUDA
-toolkit.
+named by a hash of every source, every ``csrc/*.cuh`` header and the
+flags, so an edited source or header rebuilds.  It is loaded with
+``ctypes``; each kernel wrapper binds its own entry point through
+:func:`entry`.  Nothing is built or loaded at import: this runs on the
+first launch, on a machine with the CUDA toolkit.
 """
 from __future__ import annotations
 
@@ -51,9 +51,10 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags
+    lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"repro_torch_kernels-{h.hexdigest()[:16]}.so"

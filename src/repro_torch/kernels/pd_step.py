@@ -1,13 +1,15 @@
 """CUDA kernel for Hopper: fused primal-dual step (Algorithm 1, eqs. 14-15).
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/pd_step.py:
-fused_pd_step``.  The kernel (``src/repro_torch/csrc/pd_step.cu``) runs
-one whole step over the edge-blocked layout — D^T u gather, squared-loss
-prox, D(2w+ - w), tv / tv2 dual resolvent, KM relaxation, and optionally
-the eq.-11 residual and ``iters > 1`` on a single-block layout — as one
-cooperative launch; its source note says what bounds it (bytes) and how
-the design answers that.  :func:`kernels.ref.fused_pd_step_ref` is its
-plain version.
+fused_pd_step``.  The kernel (``src/repro_torch/csrc/pd_step_impl.cuh``,
+instantiated per loss in ``csrc/pd_step*.cu``) runs one whole step over
+the edge-blocked layout — D^T u gather, the loss's prox (squared, lasso
+ISTA or logistic Newton), D(2w+ - w), tv / tv2 dual resolvent, KM
+relaxation, and optionally the eq.-11 residual and ``iters > 1`` on a
+single-block layout — as one cooperative launch, in float32 or bfloat16
+storage with float32 arithmetic; its source note says what bounds it and
+how the design answers that.  :func:`kernels.ref.fused_pd_step_ref` is
+its plain version.
 
 Build: ``kernels/_build.py`` compiles it with the port's other CUDA
 sources into one shared library on first use; nothing is built or loaded
@@ -15,10 +17,13 @@ at import.
 
 This wrapper takes CUDA tensors only and raises on anything it does not
 take; ``kernels.ops.pd_step`` sends CPU tensors to the plain version.
-``fused_pd_step.launches`` counts the launches.
+Its checks run before the device check, so the CPU tests reach them.
+``fused_pd_step.launches`` counts the launches, and
+``fused_pd_step.variant_launches`` counts them by ``"<loss>/<dtype>"``.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -26,11 +31,51 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import check_tensor as _check
 
-MAX_FEATURES = 4           # the kernel's widest per-thread register tile
+MAX_FEATURES = 16          # the kernel's widest per-thread register tile
 
-_PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-_ARGTYPES = ([_PTR] * 15 + [_I64] * 4 + [_I32] * 3 + [ctypes.c_float]
-             + [_I32] * 3 + [_PTR])
+# the loss kinds of csrc/pd_step.cuh, with the prox parameters the kernel
+# reads (the sorted keys of each loss's prox_setup)
+_LOSSES = {"squared": (0, ("b", "p")),
+           "lasso": (1, ("labeled", "m", "q", "step", "tau", "xty")),
+           "logistic": (2, ("labeled", "m", "mask", "tau", "x", "y"))}
+_STORAGE = {torch.float32: 0, torch.bfloat16: 1}
+
+_P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                        ctypes.c_float)
+
+
+class _PdArgs(ctypes.Structure):
+    """``repro_pd::PdArgs`` of ``csrc/pd_step.cuh``, field for field."""
+
+    _fields_ = [
+        ("w_in", _P), ("u_in", _P), ("inc_edges", _P), ("inc_signs", _P),
+        ("prm", _P * 6), ("tau", _P), ("src", _P), ("dst", _P),
+        ("sigma", _P), ("la", _P), ("w_out", _P), ("u_out", _P),
+        ("w_carry", _P), ("u_carry", _P), ("z", _P), ("res", _P),
+        ("active", _P),
+        ("num_nodes", _I64), ("num_edges", _I64), ("u_offset", _I64),
+        ("u_rows", _I64),
+        ("n", _I32), ("max_deg", _I32), ("reg_kind", _I32), ("relax", _I32),
+        ("rho", _F32), ("iters", _I32), ("compute_residual", _I32),
+        ("loss_kind", _I32), ("storage", _I32), ("num_samples", _I32),
+        ("num_inner", _I32), ("alpha", _F32),
+    ]
+
+
+_ARGTYPES = [ctypes.POINTER(_PdArgs), _P]
+
+
+def _param_shapes(kind: int, rows: int, n: int, params: tuple) -> list:
+    """The shape the kernel reads for each prox parameter, in pkeys
+    order."""
+    if kind == 0:
+        return [(rows, n), (rows, n, n)]
+    if kind == 1:
+        col = (rows, 1)
+        return [col, col, (rows, n, n), col, col, (rows, n)]
+    ms = params[4].shape[1] if params[4].ndim == 3 else -1
+    col = (rows, 1)
+    return [col, col, (rows, ms), col, (rows, ms, n), (rows, ms)]
 
 
 def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
@@ -40,21 +85,27 @@ def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
                   la: torch.Tensor, *, loss, reg, pkeys: tuple,
                   block_nodes: int, block_edges: int,
                   kn: int, klo: int, khi: int, rho: float = 1.0,
-                  iters: int = 1, compute_residual: bool = False):
-    """Fused PD step on the card (storage shapes as
-    :func:`kernels.ref.fused_pd_step_ref`).  Returns fresh tensors
-    (w_new (nb*BV, n), u_new (nb*EB, n)); with ``compute_residual`` also
-    the f32 scalar eq.-11 residual of the call (max over nodes and edges,
-    and over iterations when ``iters > 1``).  Launches on the current
-    stream and does not synchronize."""
-    from repro_torch.api.losses import SquaredLoss
+                  iters: int = 1, compute_residual: bool = False,
+                  out: tuple | None = None,
+                  active: torch.Tensor | None = None):
+    """Fused PD step on the card (storage shapes and ``out`` / ``active``
+    as :func:`kernels.ref.fused_pd_step_ref`).  Returns (w_new (nb*BV,
+    n), u_new (nb*EB, n)) in the storage dtype — fresh tensors, or the
+    ``out`` pair the launch wrote (it may be the owned rows of
+    ``w_store`` / ``u_store``: the kernel updates in place safely); with
+    ``compute_residual`` also the f32 scalar eq.-11 residual of the call.
+    ``active`` (a one-element bool tensor, with ``out``) is the stop word
+    of a tol solve: when it is False the launch writes nothing.  Launches
+    on the current stream and does not synchronize."""
     from repro_torch.api.regularizers import SquaredTV, TotalVariation
 
-    if not isinstance(loss, SquaredLoss) or tuple(pkeys) != ("b", "p"):
+    name = getattr(loss, "name", None)
+    if name not in _LOSSES or tuple(pkeys) != _LOSSES[name][1]:
         raise NotImplementedError(
-            "the fused_pd_step kernel runs the squared loss only (prox "
-            "params ('b', 'p')); the lasso and logistic in-kernel proxes "
-            "are ROADMAP.md Open items §2 item 1")
+            f"the fused_pd_step kernel has no prox for loss {loss!r} with "
+            f"params {tuple(pkeys)}; it runs "
+            + ", ".join(f"{k} {v[1]}" for k, v in _LOSSES.items()))
+    kind = _LOSSES[name][0]
     if isinstance(reg, TotalVariation):
         reg_kind = 0
     elif isinstance(reg, SquaredTV):
@@ -62,11 +113,6 @@ def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
     else:
         raise NotImplementedError(
             f"the fused_pd_step kernel has no dual resolvent for {reg!r}")
-    device = w_store.device
-    if device.type != "cuda":
-        raise ValueError(f"fused_pd_step launches on CUDA tensors; got "
-                         f"{device} (kernels.ops.pd_step sends CPU tensors "
-                         "to the plain version)")
     bv, eb = int(block_nodes), int(block_edges)
     if src.ndim != 2 or src.shape[0] % eb:
         raise ValueError(f"src must be (nb*{eb}, 1), got {tuple(src.shape)}")
@@ -81,40 +127,85 @@ def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
     if n > MAX_FEATURES:
         raise NotImplementedError(
             f"the fused_pd_step kernel takes 1..{MAX_FEATURES} features, got "
-            f"{n}; wider register tiles are ROADMAP.md Open items §2 item 1")
+            f"{n}; wider tiles are ROADMAP.md Open items §2 item 1")
+    store = w_store.dtype
+    if store not in _STORAGE:
+        raise TypeError(f"fused_pd_step stores float32 or bfloat16, got "
+                        f"{store}")
+    device = w_store.device
     f32, i32 = torch.float32, torch.int32
     rows = (nb + kn - 1) * bv
     max_deg = inc_edges.shape[1]
-    b, p = params
-    _check("w_store", w_store, (rows, n), f32, device)
-    _check("u_store", u_store, ((nb + klo + khi) * eb, n), f32, device)
+    _check("w_store", w_store, (rows, n), store, device)
+    _check("u_store", u_store, ((nb + klo + khi) * eb, n), store, device)
     _check("inc_edges", inc_edges, (rows, max_deg), i32, device)
     _check("inc_signs", inc_signs, (rows, max_deg), f32, device)
-    _check("params['b']", b, (rows, n), f32, device)
-    _check("params['p']", p, (rows, n, n), f32, device)
+    params = tuple(params)
+    shapes = _param_shapes(kind, rows, n, params)
+    if len(params) != len(shapes):
+        raise ValueError(f"{name} takes {len(shapes)} prox params, got "
+                         f"{len(params)}")
+    for key, t, shape in zip(pkeys, params, shapes):
+        _check(f"params[{key!r}]", t, shape, store, device)
     _check("tau", tau, (rows, 1), f32, device)
-    for name, t, dt in (("src", src, i32), ("dst", dst, i32),
-                        ("sigma", sigma, f32), ("la", la, f32)):
-        _check(name, t, (nb * eb, 1), dt, device)
+    for label, t, dt in (("src", src, i32), ("dst", dst, i32),
+                         ("sigma", sigma, f32), ("la", la, f32)):
+        _check(label, t, (nb * eb, 1), dt, device)
+    if out is not None:
+        _check("out[0]", out[0], (nb * bv, n), store, device)
+        _check("out[1]", out[1], (nb * eb, n), store, device)
+    if active is not None:
+        if out is None:
+            raise ValueError("active needs out: a stopped launch writes "
+                             "nothing, so the outputs must be the state")
+        _check("active", active, tuple(active.shape), torch.bool, device)
+        if active.numel() != 1:
+            raise ValueError(f"active must hold one flag, got "
+                             f"{tuple(active.shape)}")
+    if device.type != "cuda":
+        raise ValueError(f"fused_pd_step launches on CUDA tensors; got "
+                         f"{device} (kernels.ops.pd_step sends CPU tensors "
+                         "to the plain version)")
 
-    w_new = torch.empty((nb * bv, n), dtype=f32, device=device)
-    u_new = torch.empty((nb * eb, n), dtype=f32, device=device)
+    if out is None:
+        out = (torch.empty((nb * bv, n), dtype=store, device=device),
+               torch.empty((nb * eb, n), dtype=store, device=device))
+    w_new, u_new = out
     z = torch.empty((nb * bv, n), dtype=f32, device=device)
     res = torch.zeros((1,), dtype=f32, device=device)
+    if store == f32 or iters == 1:
+        carry = (w_new, u_new)          # f32 carry lives in the outputs
+    else:
+        carry = (torch.empty((nb * bv, n), dtype=f32, device=device),
+                 torch.empty((nb * eb, n), dtype=f32, device=device))
+    args = _PdArgs(
+        w_store.data_ptr(), u_store.data_ptr(), inc_edges.data_ptr(),
+        inc_signs.data_ptr(),
+        (_P * 6)(*([t.data_ptr() for t in params]
+                   + [None] * (6 - len(params)))),
+        tau.data_ptr(), src.data_ptr(), dst.data_ptr(), sigma.data_ptr(),
+        la.data_ptr(), w_new.data_ptr(), u_new.data_ptr(),
+        carry[0].data_ptr(), carry[1].data_ptr(), z.data_ptr(),
+        res.data_ptr(), None if active is None else active.data_ptr(),
+        nb * bv, nb * eb, klo * eb, u_store.shape[0],
+        n, max_deg, reg_kind, int(rho != 1.0), float(rho), int(iters),
+        int(compute_residual), kind, _STORAGE[store],
+        params[4].shape[1] if kind == 2 else 0,
+        int(getattr(loss, "num_inner", 0)),
+        float(getattr(loss, "alpha", 0.0)))
     stream = torch.cuda.current_stream(device).cuda_stream
-    ptrs = (w_store, u_store, inc_edges, inc_signs, b, p, tau, src, dst,
-            sigma, la, w_new, u_new, z, res)
     with torch.cuda.device(device):
         err = _build.entry("fused_pd_step_launch", _ARGTYPES)(
-            *(t.data_ptr() for t in ptrs), nb * bv, nb * eb, klo * eb,
-            u_store.shape[0], n, max_deg, reg_kind, float(rho),
-            int(rho != 1.0), int(iters), int(compute_residual), stream)
+            ctypes.byref(args), stream)
     if err != 0:
         raise RuntimeError(f"fused_pd_step launch failed: CUDA error {err}")
     fused_pd_step.launches += 1
+    fused_pd_step.variant_launches[
+        f"{name}/{str(store).removeprefix('torch.')}"] += 1
     if compute_residual:
         return w_new, u_new, res[0]
     return w_new, u_new
 
 
 fused_pd_step.launches = 0
+fused_pd_step.variant_launches = collections.Counter()

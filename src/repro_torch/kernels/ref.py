@@ -5,7 +5,8 @@ device, and is what ``kernels.ops`` runs for a tensor on the CPU.  The
 fused primal-dual window step is not restated here: it is the canonical
 :func:`repro_torch.engine.step.pd_step` evaluated through a
 :class:`repro_torch.engine.executors.WindowExecutor`, as in the
-reference's ``repro.kernels.ref``.  Storage is float32.
+reference's ``repro.kernels.ref``.  Storage is float32 or bfloat16;
+arithmetic is float32 (the reference's precision policy).
 """
 from __future__ import annotations
 
@@ -19,8 +20,11 @@ def tv_prox_ref(u: torch.Tensor, bound: torch.Tensor) -> torch.Tensor:
     """Edge-wise dual clipping T^(lambda A_e) (paper Algorithm 1, step 10).
 
     u: (E, n) dual edge signal; bound: (E,) per-edge clip level lambda*A_e.
+    The bound is rounded to u's dtype before the clip, as the reference
+    kernel does (``bound.astype(u.dtype)``), so a bfloat16 ``u`` clips
+    against bfloat16 levels and the result stays bfloat16.
     """
-    b = bound[:, None]
+    b = bound.to(u.dtype)[:, None]
     return torch.clamp(u, -b, b)
 
 
@@ -30,6 +34,14 @@ def batched_affine_ref(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     p: (V, n, n); v: (V, n) (already includes the +b_i shift).
     """
     return torch.einsum("vnk,vk->vn", p, v)
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """Reduced-precision float tensors (bf16 storage) upcast to f32;
+    f32, wider floats and integers as they are."""
+    if t.is_floating_point() and t.element_size() < 4:
+        return t.to(torch.float32)
+    return t
 
 
 def pd_window_step(w_win: torch.Tensor, u_win: torch.Tensor,
@@ -52,18 +64,26 @@ def pd_window_step(w_win: torch.Tensor, u_win: torch.Tensor,
     *owned* edge ``src_local`` / ``dst_local`` (B, EB), ``sigma`` /
     ``la`` (B, EB, 1) with ``la`` the pre-scaled ``lam * A_e`` (the
     canonical step runs at ``lam = 1``).  Returns (w_relaxed_window
-    (B, NW, n), u_new_owned (B, EB, n)).
+    (B, NW, n), u_new_owned (B, EB, n)) in the storage dtype.
+
+    Precision policy (the reference's): ``w_win`` / ``u_win`` and the
+    float prox parameter windows may arrive in a reduced storage dtype
+    (bf16), while the gather-sums, prox solves and dual resolvent run in
+    f32: the window is upcast on entry and the outputs are cast back to
+    the storage dtype.  f32 storage is the identity path.
     """
+    store = w_win.dtype
     executor = WindowExecutor(
         inc_local=inc_local, inc_signs=inc_signs, src_local=src_local,
         dst_local=dst_local, weights=la, klo=klo, block_edges=block_edges)
-    params = dict(zip(pkeys, params_win))
+    params = dict(zip(pkeys, map(_f32, params_win)))
 
     def prox(v):
         return loss.prox_apply(params, v)
 
-    return _engine_pd_step(executor, prox, reg, 1.0, tau_win, sigma, w_win,
-                           u_win, rho=rho)
+    w_new, u_new = _engine_pd_step(executor, prox, reg, 1.0, tau_win, sigma,
+                                   _f32(w_win), _f32(u_win), rho=rho)
+    return w_new.to(store), u_new.to(store)
 
 
 def window_residual(w_old: torch.Tensor, u_old: torch.Tensor,
@@ -72,10 +92,11 @@ def window_residual(w_old: torch.Tensor, u_old: torch.Tensor,
                     sigma: torch.Tensor) -> torch.Tensor:
     """eq.-11 residual over the windows' *owned* rows: the max of
     ``|w_new - w_old| / tau`` over owned nodes and ``|u_new - u_old| /
-    sigma`` over owned edges, across every block.  Layout padding rows
-    are inert (their state never moves), so they contribute 0."""
-    rp = torch.max(torch.abs(w_new - w_old) / tau_owned)
-    rd = torch.max(torch.abs(u_new - u_old) / sigma)
+    sigma`` over owned edges, across every block, in f32 for bf16
+    storage.  Layout padding rows are inert (their state never moves),
+    so they contribute 0."""
+    rp = torch.max(torch.abs(_f32(w_new) - _f32(w_old)) / _f32(tau_owned))
+    rd = torch.max(torch.abs(_f32(u_new) - _f32(u_old)) / _f32(sigma))
     return torch.maximum(rp, rd)
 
 
@@ -86,7 +107,9 @@ def fused_pd_step_ref(w_store: torch.Tensor, u_store: torch.Tensor,
                       sigma: torch.Tensor, la: torch.Tensor, *, loss, reg,
                       pkeys: tuple, block_nodes: int, block_edges: int,
                       kn: int, klo: int, khi: int, rho: float = 1.0,
-                      iters: int = 1, compute_residual: bool = False):
+                      iters: int = 1, compute_residual: bool = False,
+                      out: tuple | None = None,
+                      active: torch.Tensor | None = None):
     """Plain version of the fused PD kernel: the window step over every
     block at once (the reference vmaps it).
 
@@ -94,19 +117,32 @@ def fused_pd_step_ref(w_store: torch.Tensor, u_store: torch.Tensor,
       w_store (nb*BV + (kn-1)*BV, n), u_store ((nb+klo+khi)*EB, n),
       inc_edges/inc_signs/tau and every ``params`` leaf padded to the
       same node-store rows, src/dst/sigma/la (nb*EB, 1).
-    Returns (w_new (nb*BV, n), u_new (nb*EB, n)), plus the f32 scalar
-    eq.-11 residual of the call with ``compute_residual`` (max over
-    blocks; for ``iters > 1`` the running max over iterations).
-    ``iters > 1`` requires nb == 1: the window is then the whole graph
-    and the relaxed output feeds straight back in.
+    Returns (w_new (nb*BV, n), u_new (nb*EB, n)) in the storage dtype,
+    plus the f32 scalar eq.-11 residual of the call with
+    ``compute_residual`` (max over blocks; for ``iters > 1`` the running
+    max over iterations).  ``iters > 1`` requires nb == 1: the window is
+    then the whole graph and the relaxed output feeds straight back in,
+    through an f32 carry that is rounded to the storage dtype once, at
+    the end (the reference's per-launch rounding).
+
+    ``out`` = (w_out, u_out) receives the result instead of fresh
+    tensors (it may be the owned rows of ``w_store`` / ``u_store``: the
+    step reads its windows before it writes).  ``active`` (a one-element
+    bool tensor, with ``out``) is a tol solve's stop word: where it is
+    False, ``out`` keeps what it holds and the residual is 0 — the
+    kernel then writes nothing.
     """
     bv, eb = block_nodes, block_edges
     nb = src.shape[0] // eb
     if iters != 1 and nb != 1:
         raise ValueError("multi-iteration fusion requires a single block")
+    if active is not None and out is None:
+        raise ValueError("active needs out: a stopped launch writes "
+                         "nothing, so the outputs must be the state")
     n = w_store.shape[1]
     nw, ew = kn * bv, (klo + 1 + khi) * eb
     dev = w_store.device
+    store = w_store.dtype
 
     n0 = torch.arange(nb, device=dev) * bv                  # window starts
     e0 = torch.arange(nb, device=dev) * eb
@@ -114,7 +150,8 @@ def fused_pd_step_ref(w_store: torch.Tensor, u_store: torch.Tensor,
     erow = e0[:, None] + torch.arange(ew, device=dev)       # (nb, EW)
     w_win, u_win = w_store[nrow], u_store[erow]
     isg = inc_signs[nrow]
-    params_win = tuple(a[nrow] for a in params)
+    # prox parameters are read-only across iterations: upcast once here
+    params_win = tuple(_f32(a[nrow]) for a in params)
     tau_win = tau[nrow]                                     # (nb, NW, 1)
     sg = sigma.reshape(nb, eb, 1)
     bd = la.reshape(nb, eb, 1)
@@ -129,24 +166,35 @@ def fused_pd_step_ref(w_store: torch.Tensor, u_store: torch.Tensor,
                               klo=klo, block_edges=eb, rho=rho)
 
     tau_own = tau_win[:, :bv]
+    res = torch.zeros((), dtype=torch.float32, device=dev)
     if iters == 1:
         w_o, u_o = one(w_win, u_win)
-        out = (w_o[:, :bv].reshape(nb * bv, n), u_o.reshape(nb * eb, n))
         if compute_residual:
             # owned dual rows sit at window offset klo*EB
             u_owned = u_win[:, klo * eb:(klo + 1) * eb]
-            out += (window_residual(w_win[:, :bv], u_owned, w_o[:, :bv],
-                                    u_o, tau_own, sg),)
-        return out
-
-    # nb == 1 (so kn == 1 and the owned dual rows are the whole window)
-    res = torch.zeros((), dtype=torch.float32, device=dev)
-    w_c, u_c = w_win, u_win
-    for _ in range(iters):
-        w_n, u_n = one(w_c, u_c)
-        if compute_residual:
-            res = torch.maximum(res, window_residual(
-                w_c[:, :bv], u_c, w_n[:, :bv], u_n, tau_own, sg))
-        w_c, u_c = w_n, u_n
-    out = (w_c[:, :bv].reshape(bv, n), u_c.reshape(eb, n))
-    return out + (res,) if compute_residual else out
+            res = window_residual(w_win[:, :bv], u_owned, w_o[:, :bv], u_o,
+                                  tau_own, sg)
+        w_new, u_new = w_o[:, :bv].reshape(nb * bv, n), u_o.reshape(nb * eb,
+                                                                    n)
+    else:
+        # nb == 1 (so kn == 1 and the owned dual rows are the whole
+        # window); the carry runs in f32 and rounds once at the end
+        w_c, u_c = _f32(w_win), _f32(u_win)
+        for _ in range(iters):
+            w_n, u_n = one(w_c, u_c)
+            if compute_residual:
+                res = torch.maximum(res, window_residual(
+                    w_c[:, :bv], u_c, w_n[:, :bv], u_n, tau_own, sg))
+            w_c, u_c = w_n, u_n
+        w_new = w_c[:, :bv].reshape(bv, n).to(store)
+        u_new = u_c.reshape(eb, n).to(store)
+    if out is not None:
+        if active is not None:
+            flag = active.reshape(())
+            w_new = torch.where(flag, w_new, out[0])
+            u_new = torch.where(flag, u_new, out[1])
+            res = torch.where(flag, res, torch.zeros_like(res))
+        out[0].copy_(w_new)
+        out[1].copy_(u_new)
+        w_new, u_new = out
+    return (w_new, u_new, res) if compute_residual else (w_new, u_new)

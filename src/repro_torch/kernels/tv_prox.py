@@ -2,8 +2,9 @@
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/tv_prox.py:tv_prox``.
 The kernel (``src/repro_torch/csrc/tv_prox.cu``) clips each row of the
-dual signal u (E, n) to +-bound_e, one thread per element; its source
-note says what bounds it (bytes) and how the design answers that.
+dual signal u (E, n), float32 or bfloat16, to +-bound_e (float32, rounded
+to u's dtype first, as the reference does), one thread per element; its
+source note says what bounds it (bytes) and how the design answers that.
 :func:`kernels.ref.tv_prox_ref` is its plain version, equal to it bit for
 bit.  ``kernels/_build.py`` builds it on first use.
 
@@ -21,13 +22,15 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._build import check_tensor as _check
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_void_p]
+                                     ctypes.c_int, ctypes.c_void_p]
+_STORAGE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def tv_prox(u: torch.Tensor, bound: torch.Tensor) -> torch.Tensor:
     """Clip each row of ``u`` (E, n) to [-bound_e, +bound_e] on the card
-    (``bound`` (E,), both float32 and contiguous).  Returns a fresh
-    tensor; launches on the current stream and does not synchronize."""
+    (``u`` float32 or bfloat16, ``bound`` (E,) float32, both contiguous).
+    Returns a fresh tensor of u's dtype; launches on the current stream
+    and does not synchronize."""
     device = u.device
     if device.type != "cuda":
         raise ValueError(f"tv_prox launches on CUDA tensors; got {device} "
@@ -36,7 +39,9 @@ def tv_prox(u: torch.Tensor, bound: torch.Tensor) -> torch.Tensor:
     if u.ndim != 2:
         raise ValueError(f"u must be (E, n), got {tuple(u.shape)}")
     e, n = u.shape
-    _check("u", u, (e, n), torch.float32, device)
+    if u.dtype not in _STORAGE:
+        raise TypeError(f"tv_prox clips float32 or bfloat16, got {u.dtype}")
+    _check("u", u, (e, n), u.dtype, device)
     _check("bound", bound, (e,), torch.float32, device)
     out = torch.empty_like(u)
     if u.numel() == 0:                 # a grid of 0 blocks cannot launch
@@ -44,7 +49,8 @@ def tv_prox(u: torch.Tensor, bound: torch.Tensor) -> torch.Tensor:
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         err = _build.entry("tv_prox_launch", _ARGTYPES)(
-            u.data_ptr(), bound.data_ptr(), out.data_ptr(), e, n, stream)
+            u.data_ptr(), bound.data_ptr(), out.data_ptr(), e, n,
+            _STORAGE[u.dtype], stream)
     if err != 0:
         raise RuntimeError(f"tv_prox launch failed: CUDA error {err}")
     tv_prox.launches += 1

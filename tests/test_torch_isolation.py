@@ -74,12 +74,22 @@ def cpu_problem():
                                        dict(dtype="bfloat16")])
 @pytest.mark.parametrize("backend", ["pallas", "dense"])
 def test_unported_solver_options_raise(cpu_problem, overrides, backend):
+    """``tol`` and bf16 storage are ported: both run on the fused pallas
+    path and ``tol`` on the dense one too; bf16 off the fused path still
+    raises, naming "bfloat16", as in the reference."""
     cfg = SolverConfig(num_iters=10, fused=True, **overrides)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if backend == "pallas":
-            solve_pallas(cpu_problem, cfg)
-        else:
+    if backend == "dense" and "dtype" in overrides:
+        with pytest.raises(NotImplementedError, match="bfloat16"):
             Solver(cfg.replace(backend="dense")).run(cpu_problem)
+        return
+    if backend == "pallas":
+        result = solve_pallas(cpu_problem, cfg)
+    else:
+        result = Solver(cfg.replace(backend="dense")).run(cpu_problem)
+    assert result.w.dtype == torch.float32
+    assert bool(torch.isfinite(result.w).all())
+    if "tol" in overrides:
+        assert 0 < result.diagnostics["iterations"] <= cfg.num_iters
 
 
 def test_unported_paths_raise(cpu_problem):

@@ -16,7 +16,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.api.losses import SquaredLoss              # noqa: E402
+from repro_torch.api.losses import (LassoLoss, LogisticLoss,  # noqa: E402
+                                    SquaredLoss)
 from repro_torch.api.regularizers import SquaredTV, TotalVariation  # noqa
 from repro_torch.core.graph import plan_edge_blocks, sbm_graph  # noqa: E402
 from repro_torch.kernels import ops, ref                    # noqa: E402
@@ -37,6 +38,9 @@ def _reference():
     from repro.kernels import pd_step, ref as jref
     return dict(jnp=jnp, loss=losses.SquaredLoss(), ref=jref,
                 kernel=pd_step.fused_pd_step,
+                losses={"squared": losses.SquaredLoss(),
+                        "lasso": losses.LassoLoss(**LASSO_KW),
+                        "logistic": losses.LogisticLoss()},
                 regs={"tv": regularizers.TotalVariation(),
                       "tv2": regularizers.SquaredTV()})
 
@@ -75,6 +79,55 @@ def _step_arrays(v, n, bv, seed):
                    block_edges=lt.block_edges, kn=lt.kn, klo=lt.klo,
                    khi=lt.khi)
     return arrays, extents
+
+
+PKEYS = {"squared": ("b", "p"),
+         "lasso": ("labeled", "m", "q", "step", "tau", "xty"),
+         "logistic": ("labeled", "m", "mask", "tau", "x", "y")}
+LASSO_KW = dict(alpha=0.02, num_inner=30)       # the zoo's sparse_lasso
+
+
+def _loss_arrays(loss, v, n, bv, seed):
+    """``_step_arrays`` with the prox parameters of ``loss`` in pkeys
+    order, from local data drawn like the zoo's: lasso 3 samples per
+    node (the m_i < n regime), logistic 8 with Bernoulli labels and a
+    masked last sample on every third node; half the nodes labeled.
+    The halo suffix rows are zero, as ``pad_node_store`` leaves them."""
+    arrays, ext = _step_arrays(v, n, bv, seed)
+    if loss == "squared":
+        return arrays, ext
+    rng = np.random.default_rng(seed + 1)
+    f32 = np.float32
+    rows = arrays[0].shape[0]
+    owned = rows - (ext["kn"] - 1) * ext["block_nodes"]
+    tau = arrays[5][:owned, 0].astype(np.float64)
+    ms = 3 if loss == "lasso" else 8
+    x = rng.standard_normal((owned, ms, n))
+    mask = np.ones((owned, ms))
+    if loss == "logistic":
+        mask[::3, -1] = 0.0
+    m = mask.sum(1)
+    labeled = (rng.random(owned) < 0.5).astype(np.float64)
+    if loss == "lasso":
+        y = np.einsum("vmn,vn->vm", x, rng.standard_normal((owned, n)))
+        q = np.einsum("vmn,vmk->vnk", x, x)
+        xty = np.einsum("vmn,vm->vn", x, y)
+        lips = 2.0 * np.linalg.eigvalsh(q)[:, -1] / m + 1.0 / tau
+        leaves = (labeled[:, None], m[:, None], q, (1.0 / lips)[:, None],
+                  tau[:, None], xty)
+    else:
+        y = (rng.random((owned, ms)) < 0.5) * mask
+        leaves = (labeled[:, None], m[:, None], mask, tau[:, None], x, y)
+    ext_rows = rows - owned
+    params = tuple(np.pad(a.astype(f32), ((0, ext_rows),)
+                          + ((0, 0),) * (a.ndim - 1)) for a in leaves)
+    arrays = arrays[:4] + (params,) + arrays[5:]
+    return arrays, dict(ext, pkeys=PKEYS[loss])
+
+
+def _port_loss(loss):
+    return {"squared": SquaredLoss(), "lasso": LassoLoss(**LASSO_KW),
+            "logistic": LogisticLoss()}[loss]
 
 
 def _as(arrays, to):
@@ -136,6 +189,182 @@ def test_multi_iteration_equals_repeated_single(reg):
         np.testing.assert_allclose(o.numpy(), np.asarray(w_), **TOL)
 
 
+@pytest.mark.parametrize("loss", ["lasso", "logistic"])
+@pytest.mark.parametrize("v,n,bv", SHAPES + [(50, 16, 32)])
+@pytest.mark.parametrize("rho,reg", [(1.0, "tv"), (1.9, "tv2")])
+def test_loss_variants_match_reference(loss, v, n, bv, rho, reg):
+    """Lasso and logistic steps of the port's plain version against the
+    reference's jnp ``fused_pd_step_ref`` (float32, 1e-5: the ISTA and
+    Newton inner loops repeat the gather-order difference ``TOL`` allows
+    for num_inner times), with the residual; (50, 16, 32) reaches the
+    kernel's widest tile."""
+    arrays, ext = _loss_arrays(loss, v, n, bv, seed=v)
+    j = _reference()
+    kw = dict(ext, rho=rho, compute_residual=True)
+    out = ref.fused_pd_step_ref(*_as(arrays, _to_torch), loss=_port_loss(loss),
+                                reg=REGS[reg], **kw)
+    want = j["ref"].fused_pd_step_ref(
+        *_as(arrays, j["jnp"].asarray), loss=j["losses"][loss],
+        reg=j["regs"][reg], **kw)
+    for o, w in zip(out, want):
+        np.testing.assert_allclose(o.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("loss", ["lasso", "logistic"])
+@pytest.mark.parametrize("reg", ["tv", "tv2"])
+def test_loss_variants_multi_iteration_match_reference(loss, reg):
+    """iters=5 on a single block, with the running-max residual."""
+    arrays, ext = _loss_arrays(loss, 48, 2, None, seed=4)
+    assert ext["kn"] == 1
+    j = _reference()
+    kw = dict(ext, rho=1.9, iters=5, compute_residual=True)
+    out = ref.fused_pd_step_ref(*_as(arrays, _to_torch), loss=_port_loss(loss),
+                                reg=REGS[reg], **kw)
+    want = j["ref"].fused_pd_step_ref(
+        *_as(arrays, j["jnp"].asarray), loss=j["losses"][loss],
+        reg=j["regs"][reg], **kw)
+    for o, w in zip(out, want):
+        np.testing.assert_allclose(o.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def bf16_ulp(scale: float) -> float:
+    """One bfloat16 ulp (8 significant bits) at magnitude ``scale``."""
+    return 2.0 ** (np.floor(np.log2(scale)) - 7)
+
+
+def _bf16(arrays, to, cast):
+    """The step's arrays through ``to``, with the storage ones (w, u and
+    the prox parameters) rounded by ``cast`` to bfloat16; tau, sigma, la
+    and the incidence stay f32 and int."""
+    return tuple(tuple(cast(to(b)) for b in a) if isinstance(a, tuple)
+                 else cast(to(a)) if i in (0, 1) else to(a)
+                 for i, a in enumerate(arrays))
+
+
+@pytest.mark.parametrize("loss", ["squared", "lasso", "logistic"])
+@pytest.mark.parametrize("v,n,bv,rho,reg,iters", [
+    (61, 2, 16, 1.9, "tv", 1), (40, 4, 64, 1.0, "tv2", 1),
+    (48, 2, None, 1.9, "tv", 5)])
+def test_bf16_step_matches_reference(loss, v, n, bv, rho, reg, iters):
+    """bf16 storage, f32 arithmetic: the port's plain step against the
+    reference's on the same bf16 inputs.  Both compute in f32 and round
+    the outputs to nearest even once, so they differ where an f32
+    difference straddles a rounding boundary: by at most one bf16 ulp at
+    the state's scale (measured: at most one ulp, on a few elements).
+    The residual compares rounded outputs with the inputs (iters == 1),
+    so such a flip moves it by at most that ulp over min(tau, sigma)."""
+    arrays, ext = _loss_arrays(loss, v, n, bv, seed=v)
+    j = _reference()
+    jnp = j["jnp"]
+    kw = dict(ext, rho=rho, iters=iters, compute_residual=True)
+    t_args = _bf16(arrays, _to_torch, lambda t: t.to(torch.bfloat16))
+    j_args = _bf16(arrays, jnp.asarray, lambda a: a.astype(jnp.bfloat16))
+    w, u, r = ref.fused_pd_step_ref(*t_args, loss=_port_loss(loss),
+                                    reg=REGS[reg], **kw)
+    jw, ju, jr = j["ref"].fused_pd_step_ref(
+        *j_args, loss=j["losses"][loss], reg=j["regs"][reg], **kw)
+    assert w.dtype == u.dtype == torch.bfloat16 and r.dtype == torch.float32
+    got = (w.float().numpy(), u.float().numpy())
+    want = (np.asarray(jw, np.float32), np.asarray(ju, np.float32))
+    for g, wt in zip(got, want):
+        scale = float(np.abs(wt).max())
+        assert np.abs(g - wt).max() <= bf16_ulp(scale)
+    steps = min(float(arrays[5][arrays[5] > 0].min()),
+                float(arrays[8].min()))
+    ulp = bf16_ulp(max(float(np.abs(x).max()) for x in want))
+    np.testing.assert_allclose(float(r), float(jr), rtol=1e-5,
+                               atol=ulp / steps)
+
+
+@pytest.mark.parametrize("e,n", [(7, 2), (512, 2), (1000, 16), (33, 5)])
+def test_tv_prox_bf16_matches_reference(e, n):
+    """bf16 u against the reference's bf16 kernel (interpret mode), on
+    its shapes: both round the bound to bf16 and clip, so the results
+    are equal bit for bit."""
+    from repro.kernels.tv_prox import tv_prox as j_tv_prox
+    u, bound = _tv_arrays(e, n, seed=e)
+    jnp = _reference()["jnp"]
+    want = np.asarray(j_tv_prox(jnp.asarray(u).astype(jnp.bfloat16),
+                                jnp.asarray(bound), interpret=True,
+                                block_e=64).astype(jnp.float32))
+    tu = torch.from_numpy(u).to(torch.bfloat16)
+    tb = torch.from_numpy(bound)
+    for got in (ref.tv_prox_ref(tu, tb), ops.tv_prox(tu, tb)):
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def test_stop_word_and_in_place_out():
+    """``out`` may be the owned rows of the state (the solver updates in
+    place) and gives the fresh result; a clear stop word leaves ``out``
+    as it is and returns a 0 residual."""
+    arrays, ext = _loss_arrays("logistic", 61, 2, 16, seed=3)
+    kw = dict(ext, loss=_port_loss("logistic"), reg=REGS["tv"], rho=1.9,
+              compute_residual=True)
+    t_args = _as(arrays, _to_torch)
+    w_f, u_f, r_f = ref.fused_pd_step_ref(*t_args, **kw)
+    nodes, edges = w_f.shape[0], u_f.shape[0]
+    lo = ext["klo"] * ext["block_edges"]
+    for flag in (True, False):
+        w_s, u_s = t_args[0].clone(), t_args[1].clone()
+        out = (w_s[:nodes], u_s[lo:lo + edges])
+        w_o, u_o, r_o = ref.fused_pd_step_ref(
+            w_s, u_s, *t_args[2:], **kw, out=out,
+            active=torch.tensor([flag]))
+        assert w_o.data_ptr() == w_s.data_ptr()
+        if flag:
+            assert torch.equal(w_o, w_f) and torch.equal(u_o, u_f)
+            assert torch.equal(r_o, r_f)
+        else:
+            assert torch.equal(w_s, t_args[0]) and torch.equal(u_s, t_args[1])
+            assert float(r_o) == 0.0
+
+
+def _wrapper_args(loss, n=2):
+    arrays, ext = _loss_arrays(loss, 40, n, 16, seed=5)
+    return list(_as(arrays, _to_torch)), dict(
+        ext, loss=_port_loss(loss), reg=REGS["tv"], rho=1.9)
+
+
+@pytest.mark.parametrize("loss,k", [(loss, k) for loss in PKEYS
+                                    for k in range(len(PKEYS[loss]))])
+def test_wrapper_refuses_wrongly_typed_params(loss, k):
+    """The CUDA wrapper checks every prox parameter's dtype (the storage
+    dtype), shape and contiguity before it looks for the card."""
+    args, kw = _wrapper_args(loss)
+    params = list(args[4])
+    good = params[k]
+    params[k] = good.double()
+    args[4] = tuple(params)
+    with pytest.raises(TypeError, match=PKEYS[loss][k]):
+        fused_pd_step(*args, **kw)
+    params[k] = good[:-1]
+    args[4] = tuple(params)
+    with pytest.raises(ValueError, match="shape"):
+        fused_pd_step(*args, **kw)
+    if good.ndim > 1 and good.shape[1] > 1:
+        params[k] = good.transpose(0, 1).contiguous().transpose(0, 1)
+        args[4] = tuple(params)
+        with pytest.raises(ValueError, match="contiguous"):
+            fused_pd_step(*args, **kw)
+
+
+def test_wrapper_refuses_wide_features_and_cpu_tensors():
+    args, kw = _wrapper_args("squared", n=17)
+    with pytest.raises(NotImplementedError, match="1..16 features"):
+        fused_pd_step(*args, **kw)
+    for loss in PKEYS:
+        args, kw = _wrapper_args(loss, n=16)
+        with pytest.raises(ValueError, match="CUDA"):
+            fused_pd_step(*args, **kw)
+    args, kw = _wrapper_args("squared")
+    args[4] = args[4] + (args[4][0],)
+    with pytest.raises(NotImplementedError, match="no prox"):
+        fused_pd_step(*args, **dict(kw, pkeys=("b", "p", "q")))
+
+
 def test_ops_routes_cpu_tensors_to_plain_version():
     """``ops.pd_step`` runs the plain version on CPU tensors and never
     counts a kernel launch; the kernel wrapper refuses them."""
@@ -172,6 +401,85 @@ def test_cuda_kernel_matches_plain_version(v, n, bv, rho, reg):
     for o, w in zip(got, want):
         np.testing.assert_allclose(o.cpu().numpy(), w.cpu().numpy(),
                                    rtol=1e-5, atol=1e-5)
+
+
+KERNEL_CASES = [(61, 2, 16, 1), (103, 3, 32, 1), (64, 8, 16, 1),
+                (50, 16, 32, 1), (48, 2, None, 5), (48, 16, None, 5)]
+
+
+def _cuda_args(arrays, dtype):
+    """The step's arrays on the card, storage ones in ``dtype``."""
+    cast = (lambda t: t) if dtype == "float32" else (
+        lambda t: t.to(torch.bfloat16))
+    return _bf16(arrays, lambda a: _to_torch(a, "cuda"), cast)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss", sorted(PKEYS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("v,n,bv,iters", KERNEL_CASES)
+def test_cuda_loss_variants_match_plain_version(loss, dtype, v, n, bv,
+                                                iters):
+    """Every loss x storage variant of the kernel against its plain
+    version on the card, widths 2..16, nb > 1 and iters > 1, with the
+    residual.  float32: 1e-5 (the kernel sums in slot order with fused
+    multiply-adds and its own expf / sqrtf; the inner loops repeat
+    that).  bfloat16: both round the same f32 values to nearest even,
+    so an output may differ by one bf16 ulp at the state's scale where
+    an f32 difference straddles a rounding boundary; the residual by
+    that ulp over min(tau, sigma)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    arrays, ext = _loss_arrays(loss, v, n, bv, seed=v)
+    args = _cuda_args(arrays, dtype)
+    kw = dict(ext, loss=_port_loss(loss), reg=REGS["tv" if v % 2 else "tv2"],
+              rho=1.9, iters=iters, compute_residual=True)
+    before = fused_pd_step.variant_launches[f"{loss}/{dtype}"]
+    got = fused_pd_step(*args, **kw)
+    want = ref.fused_pd_step_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_pd_step.variant_launches[f"{loss}/{dtype}"] == before + 1
+    assert got[0].dtype == want[0].dtype == getattr(torch, dtype)
+    g = [t.float().cpu().numpy() for t in got]
+    w = [t.float().cpu().numpy() for t in want]
+    if dtype == "float32":
+        for a, b in zip(g, w):
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+        return
+    for a, b in zip(g[:2], w[:2]):
+        assert np.abs(a - b).max() <= bf16_ulp(float(np.abs(b).max()))
+    ulp = bf16_ulp(max(float(np.abs(x).max()) for x in w[:2]))
+    steps = min(float(arrays[5][arrays[5] > 0].min()),
+                float(arrays[8].min()))
+    np.testing.assert_allclose(g[2], w[2], rtol=1e-5, atol=ulp / steps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss", sorted(PKEYS))
+def test_cuda_stop_word_and_in_place_out(loss):
+    """On the card: ``out`` as the owned rows of the state gives the
+    fresh result; a clear stop word writes nothing and a 0 residual."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    arrays, ext = _loss_arrays(loss, 61, 2, 16, seed=3)
+    args = _cuda_args(arrays, "float32")
+    kw = dict(ext, loss=_port_loss(loss), reg=REGS["tv"], rho=1.9,
+              compute_residual=True)
+    w_f, u_f, r_f = fused_pd_step(*args, **kw)
+    lo = ext["klo"] * ext["block_edges"]
+    for flag in (True, False):
+        w_s, u_s = args[0].clone(), args[1].clone()
+        out = (w_s[:w_f.shape[0]], u_s[lo:lo + u_f.shape[0]])
+        _, _, r_o = fused_pd_step(
+            w_s, u_s, *args[2:], **kw, out=out,
+            active=torch.tensor([flag], device="cuda"))
+        torch.cuda.synchronize()
+        if flag:
+            assert torch.equal(out[0], w_f) and torch.equal(out[1], u_f)
+            assert torch.equal(r_o, r_f)
+        else:
+            assert torch.equal(w_s, args[0]) and torch.equal(u_s, args[1])
+            assert float(r_o) == 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -248,6 +556,25 @@ def test_cuda_tv_prox_matches_plain_version(e, n):
     got = tv_prox(u, bound)
     want = ref.tv_prox_ref(u, bound)
     torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert tv_prox.launches == before + (e > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,n", TV_SHAPES + [(0, 2)])
+def test_cuda_tv_prox_bf16_matches_plain_version(e, n):
+    """Bit for bit in bfloat16: both round the bound to bf16 (nearest
+    even) and clip; the clipped value is one of u, -b, b, so storing it
+    as bf16 is exact."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    u, bound = (torch.from_numpy(a).cuda() for a in _tv_arrays(e, n, seed=e))
+    u = u.to(torch.bfloat16)
+    before = tv_prox.launches
+    got = tv_prox(u, bound)
+    want = ref.tv_prox_ref(u, bound)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
     assert torch.equal(got, want)
     assert tv_prox.launches == before + (e > 0)
 

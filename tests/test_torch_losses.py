@@ -116,13 +116,39 @@ def test_squared_prox_matrix_is_row_major(monkeypatch):
     of the inverse (emulated here on the CPU)."""
     from repro_torch.api.losses import SquaredLoss
 
+    import types
+
     arrays, tau, _, _ = _data(5, 3, seed=2, logistic=False)
     tdata = NodeData(*(torch.from_numpy(a) for a in arrays))
     want = SquaredLoss().prox_setup(tdata, torch.from_numpy(tau))["p"]
-    inv = torch.linalg.inv
-    monkeypatch.setattr(torch.linalg, "inv",
-                        lambda a: inv(a).mT.contiguous().mT)
-    assert not torch.linalg.inv(torch.eye(3)[None]).is_contiguous()
+    inv_ex = torch.linalg.inv_ex
+
+    def column_major_inv_ex(a):
+        out = inv_ex(a)
+        return types.SimpleNamespace(inverse=out.inverse.mT.contiguous().mT,
+                                     info=out.info)
+
+    # prox_setup inverts with inv_ex (no host-side check of the info code)
+    monkeypatch.setattr(torch.linalg, "inv_ex", column_major_inv_ex)
+    assert not torch.linalg.inv_ex(
+        torch.eye(3)[None]).inverse.is_contiguous()
     p = SquaredLoss().prox_setup(tdata, torch.from_numpy(tau))["p"]
     assert p.is_contiguous()
     assert torch.equal(p, want)
+
+
+def test_lasso_setup_batches_the_eigensolve(monkeypatch):
+    """The lasso's set-up takes lambda_max(Q) in batches of
+    ``EIGVALSH_BATCH`` nodes (cuSOLVER refuses batches of 32768 and
+    more); the batches give the parameters of one call."""
+    from repro_torch.api import losses
+
+    arrays, tau, _, _ = _data(3, 4, seed=7, logistic=False)
+    tdata = NodeData(*(torch.from_numpy(a) for a in arrays))
+    loss = LassoLoss(alpha=0.02, num_inner=30)
+    want = loss.prox_setup(tdata, torch.from_numpy(tau))
+    monkeypatch.setattr(losses, "EIGVALSH_BATCH", 5)       # 8 batches of 37
+    got = loss.prox_setup(tdata, torch.from_numpy(tau))
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
