@@ -6,7 +6,8 @@
 Builds the port's CUDA kernels (``fused_pd_step`` for the squared, lasso
 and logistic losses, ``tv_prox``, ``batched_affine``) from this checkout
 into one library, holds every kernel and variant (each loss in float32
-and bfloat16 storage) against its plain PyTorch version on the card, and
+and bfloat16 storage) against its plain PyTorch version on the card
+(and ``fused_pd_step`` bit-identical over two launches), and
 drives both kernel paths of ``Solver(SolverConfig(backend="pallas",
 ...)).run``: the fused primal-dual solve and the unfused one (the dense
 loop with ``tv_prox`` and ``batched_affine`` wired in).  They run on the
@@ -22,12 +23,16 @@ exits non-zero before the result.  The last three lines are the kernels'
 line, the card's name and power limit (``nvidia-smi``), and ``{"ok":
 true, "device": {...}}``.
 
+``python3 chip_smoke.py --ab PARENT`` compares the checkout ``PARENT``
+with this one instead (``ab_main``).
+
 Needs one CUDA device and the CUDA toolkit (``nvcc``); exits non-zero
 without printing a result when there is no card, or when it is run
 outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -172,6 +177,14 @@ def port_loss(name: str):
     return get_loss(name, **(LASSO_KW if name == "lasso" else {}))
 
 
+def plain_step(*args, incidence, **kw):
+    """The plain version on the arguments of ``kernels.ops.pd_step``: it
+    reads the padded tables (``args[2:4]``), not the compact incidence
+    the kernel reads."""
+    from repro_torch.kernels.ref import fused_pd_step_ref
+    return fused_pd_step_ref(*args, **kw)
+
+
 def step_inputs(v, n, bv, seed, device, loss="squared", dtype="float32"):
     """Storage tensors of one fused step on a small SBM (the shapes of
     the port's kernel tests), with the prox parameters of ``loss`` drawn
@@ -179,7 +192,9 @@ def step_inputs(v, n, bv, seed, device, loss="squared", dtype="float32"):
     P = I + N(0, 0.01), b ~ N(0, 0.01); lasso: 3 samples per node;
     logistic: 8, Bernoulli labels, every third node's last sample
     masked; half the nodes labeled), and w, u and the parameters in the
-    storage ``dtype``."""
+    storage ``dtype``.  Returns ``kernels.ops.pd_step``'s arguments: the
+    padded tables for the plain version, the compact incidence (in
+    ``kw``) for the kernel."""
     import torch
     from repro_torch.core.graph import plan_edge_blocks, sbm_graph
 
@@ -237,7 +252,7 @@ def step_inputs(v, n, bv, seed, device, loss="squared", dtype="float32"):
              "lasso": ("labeled", "m", "q", "step", "tau", "xty"),
              "logistic": ("labeled", "m", "mask", "tau", "x", "y")}[loss]
     kw = dict(pkeys=pkeys, block_nodes=lt.block_nodes, block_edges=eb,
-              kn=lt.kn, klo=lt.klo, khi=lt.khi)
+              kn=lt.kn, klo=lt.klo, khi=lt.khi, incidence=lt.compact)
     return args, kw
 
 
@@ -294,10 +309,12 @@ def loss_instances(graph, assign, seed: int):
     reg = make_regression_data(rng, graph, levels[assign % 2],
                                samples_per_node=3, num_labeled=v // 10,
                                noise_scale=0.05)
+    dev = graph.device
     return {"logistic": (Problem.create(graph, cls.data, 1e-3,
-                                        loss="logistic"), cls.w_true),
+                                        loss="logistic", device=dev),
+                         cls.w_true),
             "lasso": (Problem.create(graph, reg.data, 1e-2, loss="lasso",
-                                     **LASSO_KW), reg.w_true)}
+                                     device=dev, **LASSO_KW), reg.w_true)}
 
 
 def bound(read: int, written: int, flops: int) -> dict:
@@ -327,25 +344,28 @@ def step_cost(args, kw, loss) -> dict:
     """The least time one ``iters=1`` call could take on an H100: bytes
     it must move (each input read once, each output written once) over
     the memory rate, against the float operations this data needs over
-    the f32 rate.  The incidence counts its filled slots only, as the
-    function needs them: an int32 id and an f32 sign per slot plus int32
-    row offsets (CSR); the padded tables the kernel reads are reported
-    beside it."""
+    the f32 rate.  The incidence counts as the compact form the kernel
+    reads (``kw["incidence"]``: an int32 per in-edge, a (first, count)
+    run and a row offset per node).  Beside it: the CSR count of the
+    earlier slices (an int32 id and an f32 sign per filled slot plus row
+    offsets) and the bound with that count, and the padded tables."""
     w_store, u_store, inc_e, inc_s, params, tau, src, dst, sg, la = args
     nb = src.shape[0] // kw["block_edges"]
     n = w_store.shape[1]
     nodes, edges = nb * kw["block_nodes"], nb * kw["block_edges"]
     filled = int((inc_s != 0).sum())
-    incidence = 8 * filled + 4 * (inc_s.shape[0] + 1)
-    read = incidence + sum(t.numel() * t.element_size() for t in
-                           (w_store, u_store, *params, tau, src, dst, sg,
-                            la))
+    compact = sum(t.numel() * t.element_size() for t in kw["incidence"])
+    csr = 8 * filled + 4 * (inc_s.shape[0] + 1)
+    rest = sum(t.numel() * t.element_size() for t in
+               (w_store, u_store, *params, tau, src, dst, sg, la))
     written = w_store.element_size() * n * (nodes + edges)
     flops = (2 * filled * n                     # signed gather-sum D^T u
              + nodes * (prox_flops(loss, n, params) + 6 * n)  # prox, z, KM
              + edges * 9 * n)                   # D z, resolvent, KM
-    return {**bound(read, written, flops),
-            "incidence_bytes_filled": incidence,
+    return {**bound(compact + rest, written, flops),
+            "incidence_bytes_compact": compact,
+            "incidence_bytes_csr": csr,
+            "bound_ms_csr": bound(csr + rest, written, flops)["bound_ms"],
             "incidence_bytes_padded": (inc_e.numel() * inc_e.element_size()
                                        + inc_s.numel() * inc_s.element_size())}
 
@@ -415,12 +435,13 @@ def check_step(torch, got, want, args, dtype: str) -> dict:
 
 
 def phase_kernel_vs_plain(torch, dev) -> dict:
-    """Every kernel option and variant against the plain version; returns
-    the max error seen per kernels' line name."""
+    """Every kernel option and variant against the plain version, and
+    ``fused_pd_step`` launched twice on the same inputs (bit-identical
+    outputs: no float atomics in its sums); returns the max error seen
+    per kernels' line name."""
     from repro_torch.api.regularizers import SquaredTV, TotalVariation
-    from repro_torch.kernels.pd_step import fused_pd_step
-    from repro_torch.kernels.ref import (batched_affine_ref,
-                                         fused_pd_step_ref, tv_prox_ref)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import batched_affine_ref, tv_prox_ref
     from repro_torch.kernels.ridge_prox import batched_affine
     from repro_torch.kernels.tv_prox import tv_prox
 
@@ -443,14 +464,19 @@ def phase_kernel_vs_plain(torch, dev) -> dict:
                                dtype=dt)
         kw.update(loss=port_loss(loss), reg=regs[reg], rho=rho, iters=iters,
                   compute_residual=True)
-        got = fused_pd_step(*args, **kw)
-        want = fused_pd_step_ref(*args, **kw)
+        got = ops.pd_step(*args, **kw)        # the kernel: CUDA tensors
+        again = ops.pd_step(*args, **kw)
+        want = plain_step(*args, **kw)
         torch.cuda.synchronize()
         row = {"loss": loss, "dtype": dt, "v": v, "n": n, "bv": bv,
                "rho": rho, "reg": reg, "iters": iters,
+               "bit_identical_relaunch": all(
+                   torch.equal(a, b) for a, b in zip(got, again)),
                **check_step(torch, got, want, args, dt)}
         rows.append(row)
         require(row["ok"], f"kernel vs plain version {row}")
+        require(row["bit_identical_relaunch"],
+                f"two launches on the same inputs differ {row}")
         name = variant_name(loss, dt)
         errs[name] = max(errs[name], row["dw"], row["du"])
 
@@ -741,8 +767,7 @@ def full_size_solve(torch, dev, cfg, problem, w_true, *, drift=False,
     ``profile`` a profiled metric block."""
     from repro_torch.api import Solver, backends
     from repro_torch.engine import capped
-    from repro_torch.kernels.pd_step import fused_pd_step
-    from repro_torch.kernels.ref import fused_pd_step_ref
+    from repro_torch.kernels import ops
 
     loss, dtype = problem.loss.name, cfg.dtype
     variant = f"{loss}/{dtype}"
@@ -793,12 +818,12 @@ def full_size_solve(torch, dev, cfg, problem, w_true, *, drift=False,
             sig2, la2)
     kw = dict(loss=problem.loss, reg=problem.regularizer, pkeys=pkeys,
               block_nodes=lt.block_nodes, block_edges=eb, kn=lt.kn,
-              klo=lt.klo, khi=lt.khi, rho=cfg.rho)
-    ms = cuda_ms(lambda _: fused_pd_step(*args, **kw), reps=20)
-    plain_ms = cuda_ms(lambda _: fused_pd_step_ref(*args, **kw), reps=3)
+              klo=lt.klo, khi=lt.khi, rho=cfg.rho, incidence=lt.compact)
+    ms = cuda_ms(lambda _: ops.pd_step(*args, **kw), reps=20)
+    plain_ms = cuda_ms(lambda _: plain_step(*args, **kw), reps=3)
     block_iters = cfg.metric_every if lt.num_blocks == 1 else 1
     block_ms = cuda_ms(
-        lambda _: fused_pd_step(*args, **kw, iters=block_iters), reps=3)
+        lambda _: ops.pd_step(*args, **kw, iters=block_iters), reps=3)
     cost = step_cost(args, kw, problem.loss)
 
     def metric_block(fn, args):
@@ -813,8 +838,8 @@ def full_size_solve(torch, dev, cfg, problem, w_true, *, drift=False,
             us[lo:lo + un.shape[0]] = un
         return wn, un
 
-    k_out = metric_block(fused_pd_step, args)
-    p_out = metric_block(fused_pd_step_ref, args)
+    k_out = metric_block(ops.pd_step, args)
+    p_out = metric_block(plain_step, args)
     dw, du = max_diff(k_out[0], p_out[0]), max_diff(k_out[1], p_out[1])
     # float32 drift over the block, plus, for the single rounding of a
     # bf16 launch, one bf16 ulp at the scale of w and of u
@@ -853,7 +878,7 @@ def full_size_solve(torch, dev, cfg, problem, w_true, *, drift=False,
             return t.double() if t.is_floating_point() else t
         args64 = tuple(tuple(map(f64, a)) if isinstance(a, tuple)
                        else f64(a) for a in args)
-        x_out = metric_block(fused_pd_step_ref, args64)
+        x_out = metric_block(plain_step, args64)
         row["block_drift_from_f64"] = {
             "kernel_dw": max_diff(k_out[0], x_out[0]),
             "kernel_du": max_diff(k_out[1], x_out[1]),
@@ -885,9 +910,13 @@ def phase_full_size(torch, dev, cfg, big, w_true, gen_s) -> dict:
     (squared loss, float32), the kernel alone and its plain version, a
     float64 yardstick and a profiled metric block.  Returns the kernel's
     entry for the kernels' line."""
+    from repro_torch.api import backends
+
     row, entry = full_size_solve(torch, dev, cfg, big, w_true, drift=True,
                                  profile=True)
+    csr_s = compact_build_seconds(backends._graph_layout(big.graph))
     emit({"phase": "full_size", "generate_seconds": gen_s,
+          "compact_incidence_build_seconds": csr_s,
           "max_degree": big.graph.max_degree, **row})
     return entry
 
@@ -1077,97 +1106,180 @@ def phase_unfused_full_size(torch, dev, cfg, big, w_true) -> list:
                  library_ms=affine_times["library_ms"])]
 
 
+DATA_FIELDS = ("x", "y", "sample_mask", "labeled_mask")
+# the A/B instance's problems: loss -> (lambda, loss options)
+AB_PROBLEMS = {"squared": (1e-3, {}), "logistic": (1e-3, {}),
+               "lasso": (1e-2, LASSO_KW)}
+
+
+def compact_build_seconds(lt) -> float:
+    """Host seconds to build the layout's compact incidence from its
+    padded tables (``core/graph.py:compact_incidence``, which the planner
+    runs once per layout)."""
+    from repro_torch.core.graph import compact_incidence
+    inc_e, inc_s = lt.inc_edges.cpu().numpy(), lt.inc_signs.cpu().numpy()
+    t0 = time.perf_counter()
+    compact_incidence(inc_e, inc_s)
+    return time.perf_counter() - t0
+
+
 def save_instance(path: Path, device="cuda") -> None:
-    """Generate the full-size instance and plan its layout once, then
-    save the graph, data and layout arrays to ``path`` (.npz), so that
-    every process of an A/B comparison solves the same instance without
-    planning it again."""
-    import dataclasses
-
-    from repro_torch.api import Problem, SolverConfig, backends
-    from repro_torch.core.graph import EdgeBlockLayout
-
-    graph, data, w_true, _ = make_clustered(FULL_NODES, seed=0,
-                                            device=device)
-    problem = Problem.create(graph, data, 1e-3, device=device)
-    cfg = SolverConfig(backend="pallas", fused=True)
-    require(backends._should_fuse(problem, cfg), "A/B instance: no fusion")
-    lt = backends._graph_layout(graph)
+    """Generate the full-size instance and save the graph, the squared
+    loss's data and the logistic and lasso data of ``loss_instances`` to
+    ``path`` (.npz), so that every process of an A/B comparison solves
+    the same instances."""
+    graph, data, w_true, assign = make_clustered(FULL_NODES, seed=0,
+                                                 device=device)
+    others = loss_instances(graph, assign, seed=1)
     arrays = {f"g_{k}": getattr(graph, k).cpu().numpy()
               for k in ("src", "dst", "weights", "inc_edges", "inc_signs")}
     arrays.update({f"d_{k}": getattr(data, k).cpu().numpy()
-                   for k in ("x", "y", "sample_mask", "labeled_mask")})
-    for f in dataclasses.fields(EdgeBlockLayout):
-        v = getattr(lt, f.name)
-        arrays[f"l_{f.name}"] = (np.asarray(v) if isinstance(v, int)
-                                 else v.cpu().numpy())
+                   for k in DATA_FIELDS})
+    for loss, (prob, _) in others.items():
+        arrays.update({f"{loss}_{k}": getattr(prob.data, k).cpu().numpy()
+                       for k in DATA_FIELDS})
     np.savez(path, num_nodes=graph.num_nodes, w_true=w_true.cpu().numpy(),
              **arrays)
+
+
+@contextlib.contextmanager
+def one_phase(keep: str):
+    """Launch ``fused_pd_step`` with only its node phase (``keep=
+    "node"``) or only its edge phase (``"edge"``): the launch arguments
+    get the other phase's extent set to 0, so that phase's loop runs no
+    iteration.  For the phase split of a step; the grid is the same
+    (the cooperative grid is capped by residency at this size)."""
+    from repro_torch.kernels import _build
+    real = _build.entry
+
+    def entry(name, argtypes):
+        fn = real(name, argtypes)
+        if name != "fused_pd_step_launch":
+            return fn
+
+        def launch(args_ref, stream):
+            args = args_ref._obj
+            if keep == "node":
+                args.num_edges = 0
+            else:
+                args.num_nodes = 0
+            return fn(args_ref, stream)
+        return launch
+
+    _build.entry = entry
+    try:
+        yield
+    finally:
+        _build.entry = real
+
+
+def time_variants(torch, problems: dict, lt, compact: bool,
+                  device) -> dict:
+    """Each ``fused_pd_step`` variant alone on the saved instance, from a
+    state that moves: ms per ``iters=1`` step, and the step with only its
+    node phase (D^T u gather, prox, z, KM) or only its edge phase (D z,
+    resolvent, KM) launched.  ``compact``: the checkout's kernel reads
+    the compact incidence."""
+    from repro_torch.api import backends
+    from repro_torch.kernels import ops
+
+    rows = {}
+    for loss, dtype in VARIANTS:
+        problem, store = problems[loss], getattr(torch, dtype)
+        (params_s, pkeys, _, tau_s, _, sig2, src2, dst2, la2, _) = \
+            backends._fused_setup(problem.graph, problem.data, problem.lam,
+                                  None, loss=problem.loss,
+                                  reg=problem.regularizer, layout=lt,
+                                  dtype=store)
+        w_store, u_store = moving_state(torch, lt, problem.num_features,
+                                        la2, device, store)
+        args = (w_store, u_store, lt.pad_node_store(lt.inc_edges),
+                lt.pad_node_store(lt.inc_signs), params_s, tau_s, src2,
+                dst2, sig2, la2)
+        kw = dict(loss=problem.loss, reg=problem.regularizer, pkeys=pkeys,
+                  block_nodes=lt.block_nodes, block_edges=lt.block_edges,
+                  kn=lt.kn, klo=lt.klo, khi=lt.khi, rho=1.9)
+        if compact:
+            kw["incidence"] = lt.compact
+
+        def step(_):
+            return ops.pd_step(*args, **kw)
+
+        row = {"ms_per_step": cuda_ms(step, reps=20)}
+        for phase in ("node", "edge"):
+            with one_phase(phase):
+                row[f"{phase}_phase_ms"] = cuda_ms(step, reps=20)
+        rows[f"{loss}/{dtype}"] = row
+        del args, w_store, u_store, params_s
+        torch.cuda.empty_cache()
+    return rows
 
 
 def time_fused_solve(root: Path, path: Path, reps: int = 3,
                      device="cuda") -> dict:
     """In this process, with the ``repro_torch`` of checkout ``root``:
-    the fused squared float32 continuation solve of the saved instance
-    (after one warm-up solve) and the kernel alone per step.  Uses only
-    what every slice of the port has, so it times an earlier checkout
-    as well."""
-    import dataclasses
+    the saved instance's layout planned by the fused gate (host seconds,
+    after the kernel library is built: the set-up a solve pays), the
+    fused squared float32 continuation solve (after one warm-up solve),
+    and every ``fused_pd_step`` variant alone per step with its phase
+    split (``time_variants``).  Uses only what every slice of the port
+    since the third has, and passes the compact incidence where the
+    checkout's kernel reads it, so it times the parent checkout as
+    well."""
+    import inspect
 
     import torch
     sys.path.insert(0, str(root / "src"))
     from repro_torch import interop
     from repro_torch.api import Problem, Solver, SolverConfig, backends
-    from repro_torch.core.graph import EdgeBlockLayout
-    from repro_torch.kernels.pd_step import fused_pd_step
+    from repro_torch.kernels import _build, ops
 
     z = np.load(path)
     graph = interop.graph_from_arrays(
         **{k: z[f"g_{k}"] for k in ("src", "dst", "weights", "inc_edges",
                                     "inc_signs")},
         num_nodes=int(z["num_nodes"]), device=device)
-    lt = interop.layout_from_arrays(
-        {f.name: z[f"l_{f.name}"] for f in dataclasses.fields(
-            EdgeBlockLayout)}, device=device)
-    graph = dataclasses.replace(graph, layout=lt)
-    data = interop.node_data_from_arrays(
-        *(z[f"d_{k}"] for k in ("x", "y", "sample_mask", "labeled_mask")),
-        device=device)
-    problem = Problem.create(graph, data, 1e-3, device=device)
+    problems = {}
+    for loss, (lam, opts) in AB_PROBLEMS.items():
+        prefix = "d" if loss == "squared" else loss
+        data = interop.node_data_from_arrays(
+            *(z[f"{prefix}_{k}"] for k in DATA_FIELDS), device=device)
+        problems[loss] = Problem.create(graph, data, lam, loss=loss,
+                                        device=device, **opts)
     w_true = torch.from_numpy(z["w_true"]).to(device)
     cfg = SolverConfig(backend="pallas", fused=True, continuation=True,
                        rho=1.9, metric_every=100)
-    Solver(cfg).run(problem, w_true=w_true)
+    _build.library()
+    t0 = time.perf_counter()
+    require(backends._should_fuse(problems["squared"], cfg),
+            "A/B instance: no fusion")
+    plan_s = time.perf_counter() - t0
+    lt = backends._graph_layout(graph)
+    compact = "incidence" in inspect.signature(ops.pd_step).parameters
+    out = {"root": str(root), "compact_incidence": compact,
+           "plan_seconds": plan_s}
+    if compact:
+        out["compact_incidence_build_seconds"] = compact_build_seconds(lt)
+    Solver(cfg).run(problems["squared"], w_true=w_true)
     rates = []
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        Solver(cfg).run(problem, w_true=w_true)
+        Solver(cfg).run(problems["squared"], w_true=w_true)
         torch.cuda.synchronize()
         rates.append((cfg.warm_iters + cfg.final_iters)
                      / (time.perf_counter() - t0))
-    (params_s, pkeys, _, tau_s, _, sig2, src2, dst2, la2, _) = \
-        backends._fused_setup(graph, data, 1e-3, None, loss=problem.loss,
-                              reg=problem.regularizer, layout=lt)
-    eb = lt.block_edges
-    w_store, u_store = moving_state(torch, lt, 2, la2, device,
-                                    torch.float32)
-    args = (w_store, u_store, lt.pad_node_store(lt.inc_edges),
-            lt.pad_node_store(lt.inc_signs), params_s, tau_s, src2, dst2,
-            sig2, la2)
-    kw = dict(loss=problem.loss, reg=problem.regularizer, pkeys=pkeys,
-              block_nodes=lt.block_nodes, block_edges=eb, kn=lt.kn,
-              klo=lt.klo, khi=lt.khi, rho=cfg.rho)
-    ms = cuda_ms(lambda _: fused_pd_step(*args, **kw), reps=20)
-    return {"root": str(root), "iterations_per_s": rates,
-            "kernel_ms_per_step": ms}
+    return {**out, "iterations_per_s": rates,
+            "kernels": time_variants(torch, problems, lt, compact, device)}
 
 
 def ab_main(argv: list) -> int:
-    """``--ab PARENT``: the fused squared float32 solve at full size with
-    the parent checkout ``PARENT`` and this one, in turns (parent,
-    change, change, parent), each in its own process on one saved
-    instance.  ``--time-solve ROOT NPZ``: one such process."""
+    """``--ab PARENT``: with the parent checkout ``PARENT`` and this one,
+    in turns (parent, change, change, parent), each in its own process
+    on the saved full-size instances: the fused squared float32 solve,
+    and every ``fused_pd_step`` variant's ms per step with its node and
+    edge phases (``time_variants``).  ``--time-solve ROOT NPZ``: one
+    such process."""
     import subprocess as sp
 
     import torch
@@ -1190,7 +1302,7 @@ def ab_main(argv: list) -> int:
         for root in (parent, ROOT, ROOT, parent):
             proc = sp.run([sys.executable, str(Path(__file__).resolve()),
                            "--time-solve", str(root), str(path)],
-                          capture_output=True, text=True, timeout=900,
+                          capture_output=True, text=True, timeout=1200,
                           check=False)
             require(proc.returncode == 0,
                     f"A/B run in {root} failed:\n{proc.stderr[-4000:]}")

@@ -45,7 +45,7 @@ from repro_torch.core.partition import gather_padded
 from repro_torch.engine import (DenseExecutor, certificate, device_fetch,
                                 device_loop, pd_residual, scan_solve)
 from repro_torch.engine import pd_step as engine_pd_step
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, pd_step as pd_kernel
 
 BACKENDS: dict[str, Callable] = {}
 
@@ -376,12 +376,19 @@ def _fused_window_fits(problem: Problem,
     The estimate is dtype-aware, as the reference's: the storage
     policy's itemsize scales the state and prox-parameter bytes
     (``EdgeBlockLayout.window_bytes``) and feeds the block-size
-    auto-tuner.
+    auto-tuner.  On the card one node's prox parameters must also fit
+    the kernel's shared-memory staging (``kernels.pd_step.stages_fit``,
+    the counterpart of the TPU's VMEM cap): a logistic node with some
+    ten thousand samples does not, and runs unfused.
     """
+    num_samples = problem.data.x.shape[1]
     try:
         param_floats = problem.loss.prox_param_floats(
-            problem.data.x.shape[1], problem.num_features)
+            num_samples, problem.num_features)
     except NotImplementedError:
+        return False
+    if problem.device.type == "cuda" and not pd_kernel.stages_fit(
+            problem.loss, problem.num_features, num_samples):
         return False
     itemsize = 4
     if config is not None:
@@ -467,7 +474,8 @@ def _fused_run_iters(lt, inc_e, inc_s, params_s, pkeys, tau_s, src2, dst2,
             sig2, la2, loss=loss, reg=reg, pkeys=pkeys, block_nodes=bv,
             block_edges=eb, kn=kn, klo=klo, khi=khi, rho=rho, iters=iters,
             compute_residual=compute_residual, active=active,
-            out=(w_store[:nodes], u_store[klo * eb:klo * eb + edges]))
+            out=(w_store[:nodes], u_store[klo * eb:klo * eb + edges]),
+            incidence=lt.compact)
         return (state, out[2]) if compute_residual else state
 
     return run_iters

@@ -67,6 +67,10 @@ class EdgeBlockLayout:
       inc_signs:     (nb*BV, max_deg) float32 +1/-1/0 as EmpiricalGraph.
       edge_pos:      (E,) original edge id -> owned layout position.
       edge_flip:     (E,) +1/-1; u_layout = edge_flip * u_original.
+      in_ptr, in_ids, out_run:  the same incidence in the compact form the
+                     CUDA kernel reads (:func:`compact_incidence`), built
+                     on the host once, for the layout the planner keeps;
+                     a field of the port only.
     """
 
     block_nodes: int
@@ -87,6 +91,15 @@ class EdgeBlockLayout:
     inc_signs: torch.Tensor
     edge_pos: torch.Tensor
     edge_flip: torch.Tensor
+    in_ptr: torch.Tensor | None = None
+    in_ids: torch.Tensor | None = None
+    out_run: torch.Tensor | None = None
+
+    @property
+    def compact(self) -> tuple:
+        """``(in_ptr, in_ids, out_run)``: the compact incidence the fused
+        kernel takes as ``incidence``."""
+        return self.in_ptr, self.in_ids, self.out_run
 
     @property
     def nodes_pad(self) -> int:
@@ -306,20 +319,60 @@ def _tensor(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
         np.ascontiguousarray(a, dtype=np_dtype)).to(device)
 
 
+def compact_incidence(inc_edges: np.ndarray, inc_signs: np.ndarray
+                      ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The compact form of a layout's padded incidence tables.
+
+    The planner fills each row with no holes: first the node's in-edges
+    (sign -1, the edges whose dst it is), then its out-edges (sign +1)
+    as one run of consecutive edge ids, since edges are sorted by src.
+    So a row is a list of in-edge ids and one (first id, count) pair.
+    Returns int32 arrays over the tables' rows:
+
+      in_ptr  (rows + 1,): row r's in-edges are in_ids[in_ptr[r]:in_ptr[r+1]]
+      in_ids  (in-slots,): in-edge ids, row after row, in slot order
+      out_run (rows, 2):   (first id, count) of row r's out-edges
+
+    Padding rows are empty (no in-edges, run (0, 0)).  Raises
+    ValueError for tables not in that form.
+    """
+    e = np.asarray(inc_edges, np.int64)
+    s = np.asarray(inc_signs)
+    rows, width = s.shape
+    col = np.arange(width)[None, :]
+    n_in = np.count_nonzero(s < 0, axis=1)
+    n_out = np.count_nonzero(s > 0, axis=1)
+    is_in = col < n_in[:, None]
+    is_out = (col >= n_in[:, None]) & (col < (n_in + n_out)[:, None])
+    if not (np.array_equal(s < 0, is_in) and np.array_equal(s > 0, is_out)):
+        raise ValueError("incidence rows must hold their -1 slots, then "
+                         "their +1 slots, with no holes")
+    first = np.where(n_out > 0, e[np.arange(rows),
+                                  np.minimum(n_in, width - 1)], 0)
+    run = first[:, None] + (col - n_in[:, None])
+    if not np.array_equal(np.where(is_out, e, 0), np.where(is_out, run, 0)):
+        raise ValueError("a row's +1 slots must be consecutive edge ids")
+    in_ptr = np.concatenate([[0], np.cumsum(n_in)])
+    return (in_ptr.astype(np.int32), e[is_in].astype(np.int32),
+            np.stack([first, n_out], axis=1).astype(np.int32))
+
+
 def _round_up(x: int, mult: int) -> int:
     return -(-max(x, 1) // mult) * mult
 
 
 def _plan_edge_blocks_fixed(graph: EmpiricalGraph, block_nodes: int,
-                            min_extents: dict | None = None
-                            ) -> EdgeBlockLayout:
+                            min_extents: dict | None = None, *,
+                            compact: bool = True) -> EdgeBlockLayout:
     """Plan the edge-blocked layout for an explicit block size.
 
     ``min_extents`` forces lower bounds on the padded extents
     (``num_blocks`` / ``block_edges`` / ``kn`` / ``klo`` / ``khi`` /
     ``max_degree``).  Forced padding only widens windows and adds
     zero-weight slots — the planned incidence/ownership content is
-    unchanged.
+    unchanged.  ``compact=False`` leaves out the compact incidence (the
+    auto-tuner's candidates: :func:`with_compact` adds it to the one it
+    keeps).
     """
     from repro_torch.core.partition import rcm_order_cached
 
@@ -417,7 +470,7 @@ def _plan_edge_blocks_fixed(graph: EmpiricalGraph, block_nodes: int,
     inc_e = inc_e + klo * EB               # owned position -> storage id
 
     dev = graph.device
-    return EdgeBlockLayout(
+    lt = EdgeBlockLayout(
         block_nodes=BV, num_blocks=nb, block_edges=EB, kn=int(kn),
         klo=int(klo), khi=int(khi), max_degree=max_deg, num_nodes=V,
         num_edges=E,
@@ -431,6 +484,22 @@ def _plan_edge_blocks_fixed(graph: EmpiricalGraph, block_nodes: int,
         edge_pos=_tensor(edge_pos, torch.int32, dev),
         edge_flip=_tensor(edge_flip, torch.float32, dev),
     )
+    return with_compact(lt, inc_e, inc_s) if compact else lt
+
+
+def with_compact(lt: EdgeBlockLayout, inc_edges: np.ndarray | None = None,
+                 inc_signs: np.ndarray | None = None) -> EdgeBlockLayout:
+    """``lt`` with its compact incidence, built on the host from its
+    padded tables (``inc_edges`` / ``inc_signs`` as numpy arrays where
+    the caller has them, else copied from the layout)."""
+    if inc_edges is None:
+        inc_edges = lt.inc_edges.cpu().numpy()
+        inc_signs = lt.inc_signs.cpu().numpy()
+    tables = compact_incidence(inc_edges, inc_signs)
+    dev = lt.inc_edges.device
+    return dataclasses.replace(lt, **{
+        k: _tensor(a, torch.int32, dev)
+        for k, a in zip(("in_ptr", "in_ids", "out_run"), tables)})
 
 
 # candidate banded block sizes for the auto-tuner; whole-graph single
@@ -467,7 +536,7 @@ def plan_edge_blocks(graph: EmpiricalGraph,
     for bv in _BLOCK_LADDER:
         if bv >= whole:
             break
-        lt = _plan_edge_blocks_fixed(graph, bv, min_extents)
+        lt = _plan_edge_blocks_fixed(graph, bv, min_extents, compact=False)
         wb = lt.window_bytes(nf, param_floats=pf, itemsize=isz)
         if cap is not None and wb > cap:
             continue
@@ -478,11 +547,12 @@ def plan_edge_blocks(graph: EmpiricalGraph,
     # edge window)
     if (best is None or best.kn > 3
             or (best.klo + 1 + best.khi) > 3):
-        single = _plan_edge_blocks_fixed(graph, whole, min_extents)
+        single = _plan_edge_blocks_fixed(graph, whole, min_extents,
+                                         compact=False)
         swb = single.window_bytes(nf, param_floats=pf, itemsize=isz)
         if best is None or cap is None or swb <= cap:
-            return single
-    return best
+            return with_compact(single)
+    return with_compact(best)
 
 
 def sbm_graph(rng: np.random.Generator, cluster_sizes, p_in: float,

@@ -34,3 +34,21 @@ extern "C" int fused_pd_step_launch(const repro_pd::PdArgs* args,
   }
   return static_cast<int>(err);
 }
+
+// The shared memory a launch of loss `loss_kind` at n features and
+// num_samples samples a node stages for each node (*node_bytes), and the
+// most a block may stage (*limit).  A launch whose node passes the limit
+// is refused: the wrapper asks first, and so does the solver's fused
+// gate.  Returns a CUDA error code.
+extern "C" int fused_pd_step_staging(int loss_kind, int n, int num_samples,
+                                     long long* node_bytes,
+                                     long long* limit) {
+  using namespace repro_pd;
+  if (loss_kind < kSquared || loss_kind > kLogistic || n < 1 ||
+      num_samples < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Plan p;
+  *node_bytes = stage_layout(loss_kind, n, num_samples, p);
+  *limit = kSmemMax;
+  return 0;
+}

@@ -17,8 +17,10 @@ enum Storage { kF32 = 0, kBF16 = 1 };
 struct PdArgs {
   const void* w_in;        // T (>= num_nodes, n) node store
   const void* u_in;        // T (u_rows, n) edge store (storage ids)
-  const int* inc_edges;    // (>= num_nodes, max_deg) storage edge ids
-  const float* inc_signs;  // (>= num_nodes, max_deg) +1 / -1 / 0
+  // the compact incidence (core/graph.py:compact_incidence), storage ids
+  const int* in_ptr;       // (num_nodes + 1,) offsets into in_ids
+  const int* in_ids;       // (num_in,) in-edges (sign -1), row by row
+  const int* out_run;      // (num_nodes, 2) first id, count of out-edges
   const void* prm[6];      // T: the loss's prox parameters, sorted keys
   const float* tau;        // (>= num_nodes,) primal steps
   const int* src;          // (num_edges,) layout node ids
@@ -36,8 +38,8 @@ struct PdArgs {
   long long num_edges;     // nb * EB
   long long u_offset;      // klo * EB: storage row of owned edge 0
   long long u_rows;        // rows of the edge store
+  long long num_in;        // in-edge slots (in_ids' length)
   int n;
-  int max_deg;
   int reg_kind;            // 0: tv (clip), 1: tv2 (scaling)
   int relax;               // rho != 1
   float rho;

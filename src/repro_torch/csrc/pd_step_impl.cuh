@@ -9,7 +9,7 @@
 //
 // What it computes, per iteration, in float32 whatever the storage:
 //   node phase, every layout node i < nb*BV:
-//     dtu_i = sum_d inc_signs[i,d] * u[inc_edges[i,d]]   (storage ids)
+//     dtu_i = sum of u over i's out-edges - sum of u over its in-edges
 //     w+_i  = PU_i(w_i - tau_i dtu_i)   the loss's prox (LOSS below)
 //     z_i   = 2 w+_i - w_i;  w_i <- w_i + rho (w+_i - w_i)  (KM, rho != 1)
 //   edge phase, every owned edge e < nb*EB (storage row klo*EB + e):
@@ -30,61 +30,86 @@
 //     labeled ? z : v              ("labeled", "m", "mask", "tau", "x", "y")
 //
 // Storage (template T = float or __nv_bfloat16): w, u and the float prox
-// parameters are loaded with __bfloat162float and stored with
-// __float2bfloat16_rn (round to nearest even, as Tensor.to(bfloat16));
-// tau, sigma, la, the incidence signs, z and the residual stay float32.
-// With iters == 1 the residual compares the storage-rounded outputs with
-// the inputs, as the plain version does.  With iters > 1 the iterations
-// run through a float32 carry (w_carry, u_carry) and only the last one
-// writes the storage type, so bf16 rounds once per launch as in the
-// reference; the residual then compares the carry.  For float storage the
-// wrapper points the carry at the outputs.
+// parameters are read as T and widened exactly; outputs are rounded to
+// nearest even (as Tensor.to(bfloat16)); tau, sigma, la, z and the
+// residual stay float32.  With iters == 1 the residual compares the
+// storage-rounded outputs with the inputs, as the plain version does.
+// With iters > 1 the iterations run through a float32 carry (w_carry,
+// u_carry) and only the last one writes the storage type, so bf16 rounds
+// once per launch as in the reference; the residual then compares the
+// carry.  For float storage the wrapper points the carry at the outputs.
 //
-// Design.  The TPU kernel streams one node block's window (owned + halo
-// rows) through VMEM per grid step and recomputes the halo nodes' primal
-// update in every block that needs it.  Here the whole layout is read
-// straight from device memory, so each node is computed once: one
-// cooperative persistent launch, grid-stride loops, one thread per node in
-// the node phase (z goes to a scratch tensor), a grid-wide barrier
-// (cooperative_groups grid sync), one thread per owned edge in the edge
-// phase, and another barrier before the next of `iters` iterations (the
-// TPU kernel's in-kernel multi-iteration loop, only on a single-block
-// layout).  A node reads and writes only its own w row and reads u; an
-// edge reads and writes only its own u row and reads z; the barriers
-// separate the phases.  So the outputs may be the owned rows of the
-// inputs themselves: the solver updates its state in place.  The
-// residual is a per-thread max, a block max, then an atomicMax on the
-// float's bits (non-negative floats order like their bit patterns) into a
-// scalar the wrapper zeroes.
+// Design.  One cooperative persistent launch (the occupancy query sizes
+// the grid); a grid-wide barrier separates the node phase from the edge
+// phase and one iteration from the next (the TPU kernel's in-kernel
+// multi-iteration loop, only on a single-block layout).  A node writes
+// only its own w and z rows and an edge only its own u row, and the
+// barriers separate the phases, so the outputs may be the owned rows of
+// the inputs: the solver updates its state in place.
+//
+//   * Compact incidence.  The kernel reads the layout's compact tables
+//     (core/graph.py:compact_incidence), not the padded (V, max_deg) ones:
+//     per node its in-edge ids (CSR, sign -1 implied) and its out-edges as
+//     one run of consecutive storage ids (first, count), which the planner
+//     guarantees because edges are sorted by src.  The out half of D^T u
+//     is a stream of consecutive u rows that needs no id at all.
+//   * Staged tiles.  The node phase walks tiles of `tile` nodes.  A
+//     tile's rows are contiguous in every node table, so the block first
+//     copies, with coalesced loads, each node's slots (in-slot offset and
+//     count, out run) and its prox parameter rows into shared memory
+//     (parameters as float32, each node's row padded to an odd number of
+//     words, so one thread per node reads them without bank conflicts).
+//     `tile` is the largest power of two up to 256 whose staging fits
+//     kSmemTarget bytes.
+//   * Cooperative gathers.  A group of `lanes` threads (a power of two
+//     from the mean degree) takes one node: lane l takes the node's slots
+//     l, l + lanes, ... (in-edges first, then the out run), kUnroll of
+//     them per round with every id and row load issued before the first
+//     add; the group sums with a fixed xor-shuffle tree, and each group
+//     has two nodes in flight.  No float atomics: two launches on the
+//     same inputs give bit-identical outputs.
+//   * The prox runs one thread per node from shared memory (D^T u and the
+//     parameters): the lasso's and logistic's inner loops re-read Q or
+//     the samples from there, not through L1.
+//   * Rows move as whole vectors (8 or 16 bytes; bf16 pairs in a word)
+//     when n equals the register tile and every row pointer is 16-byte
+//     aligned; otherwise element by element.
+//   * Edge phase: one thread per owned edge, grid-stride.
 //
 // Stop word.  A tolerance solve enqueues every block of its budget and
 // keeps a device flag (`active`) that it clears once a block's residual
 // is <= tol.  Every thread reads the flag first and, when it is clear,
 // returns before the first grid sync: the launch writes nothing, so the
 // state stays exactly as it is and nothing is read back to the host.
+// The residual is a per-thread max, a block max, then an atomicMax on the
+// float's bits (non-negative floats order like their bit patterns) into a
+// scalar the wrapper zeroes.
 //
 // The feature count n is a runtime value held in a register tile of
 // MAXN = 2, 4, 8 or 16; the entry point refuses n > 16.  The logistic
-// Hessian is MAXN (MAXN + 1) / 2 floats per thread, 136 at MAXN = 16, so
-// that width spills to local memory; a cooperative launch needs only one
-// resident block per SM, and the occupancy query sizes the grid.
+// Hessian is MAXN (MAXN + 1) / 2 floats per thread, 136 at MAXN = 16.
 //
 // What bounds it: bytes for the squared loss (a few flops per byte); the
 // lasso and logistic inner loops add num_inner passes of n^2 (lasso) or
-// m n^2 (logistic) flops per node over parameters the node has already
-// read.  The function must move the filled incidence slots (an id and a
-// sign for each of the 2E slots, plus row offsets: about 167 MB at the
-// 1M-node scale-out graph, mean degree ~20.4), the dual rows gathered
-// through them, the prox parameters, and the edge columns.  This kernel
-// reads the padded tables instead (ids and signs, V x max_deg x 4 B
-// each; at max_deg 47 about 376 MB) and re-reads the lasso's Q and the
-// logistic's samples from L1/L2 on every inner iteration.  Compacting the
-// tables and staging a node's parameters is the redesign's work.
+// m n^2 (logistic) flops per node over parameters already staged.  The
+// function must move the compact incidence (an int32 per in-edge, two per
+// node and the row offsets: about 53 MB at the 1M-node scale-out graph
+// with its ~10.2M edges), the u rows of both ends of every edge, w, tau,
+// the prox parameters, the edge columns (src, dst, sigma, la: 16 bytes an
+// edge) and the outputs.  The in-edge gathers are random rows: each costs
+// a 32-byte sector where it misses L2.  Measured at that size (PERF.md
+// §6, chip_smoke.py --ab): the edge phase streams at ~2.2 TB/s; the node
+// phase stays well short of its bytes, held by the latency of its
+// dependent loads (slots, then ids, then rows), which only resident
+// warps hide (min_blocks below), and in float32 by in-edge rows that
+// miss L2.
 #pragma once
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "pd_step.cuh"
 
@@ -93,6 +118,31 @@ namespace repro_pd {
 namespace cg = cooperative_groups;
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxTile = 256;            // nodes per tile
+constexpr int kSmemTarget = 48 * 1024;   // staged bytes per block
+// the kernel's static shared memory: the residual's warp maxima
+constexpr int kSmemStatic = kWarps * (int)sizeof(float);
+// the most a block may stage: the shared memory it can opt in to, less
+// the static part
+constexpr int kSmemMax = 227 * 1024 - kSmemStatic;
+// what a block gets without opting in, less the static part (rounded)
+constexpr int kSmemDefault = 48 * 1024 - 1024;
+constexpr int kUnroll = 4;               // gather loads per lane per round
+
+// Per-launch plan, computed on the host from the arguments.
+struct Plan {
+  long long num_tiles;
+  int tile;          // nodes per tile
+  int lanes;         // threads per node in the gather (power of two)
+  int vec;           // rows move as whole vectors
+  int num_params;
+  int doffset;       // shared float offset of D^T u (node slots before it)
+  int dstride;       // shared floats per node of D^T u
+  int elems[6];      // elements per node of each prox parameter
+  int stride[6];     // shared floats per node of each (elems | 1)
+  int offset[6];     // shared float offset of each
+};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -106,42 +156,226 @@ template <> __device__ __forceinline__ __nv_bfloat16
 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
+// x rounded to the storage type and widened again
+template <typename T> __device__ __forceinline__ float rounded(float x) {
+  return to_f32(from_f32<T>(x));
+}
 
 __device__ __forceinline__ float clip(float x, float l) {
   return fminf(fmaxf(x, -l), l);
 }
 
-// Parameter k of the prox, element idx, in float32.
-template <typename T>
-__device__ __forceinline__ float prm(const PdArgs& a, int k, long long idx) {
-  return to_f32(static_cast<const T*>(a.prm[k])[idx]);
+// ---- row I/O: MAXN elements as 32-bit words, in 16/8/4-byte vectors ----
+template <int W>
+__device__ __forceinline__ void load_words(const void* p, unsigned (&w)[W]) {
+  if constexpr (W % 4 == 0) {
+#pragma unroll
+    for (int c = 0; c < W / 4; ++c) {
+      const uint4 q = static_cast<const uint4*>(p)[c];
+      w[4 * c] = q.x; w[4 * c + 1] = q.y; w[4 * c + 2] = q.z;
+      w[4 * c + 3] = q.w;
+    }
+  } else if constexpr (W % 2 == 0) {
+#pragma unroll
+    for (int c = 0; c < W / 2; ++c) {
+      const uint2 q = static_cast<const uint2*>(p)[c];
+      w[2 * c] = q.x; w[2 * c + 1] = q.y;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < W; ++c) w[c] = static_cast<const unsigned*>(p)[c];
+  }
 }
 
-// PU_i(v) of the loss into wp (node i; n live entries of MAXN).
-template <int MAXN, int LOSS, typename T>
-__device__ __forceinline__ void prox(const PdArgs& a, long long i,
+template <int W>
+__device__ __forceinline__ void store_words(void* p, const unsigned (&w)[W]) {
+  if constexpr (W % 4 == 0) {
+#pragma unroll
+    for (int c = 0; c < W / 4; ++c)
+      static_cast<uint4*>(p)[c] = make_uint4(w[4 * c], w[4 * c + 1],
+                                             w[4 * c + 2], w[4 * c + 3]);
+  } else if constexpr (W % 2 == 0) {
+#pragma unroll
+    for (int c = 0; c < W / 2; ++c)
+      static_cast<uint2*>(p)[c] = make_uint2(w[2 * c], w[2 * c + 1]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < W; ++c) static_cast<unsigned*>(p)[c] = w[c];
+  }
+}
+
+// One row of n (<= MAXN) elements into r, zero past n.  `vec` promises
+// n == MAXN and an aligned row.
+template <int MAXN>
+__device__ __forceinline__ void load_row(const float* p, int n, bool vec,
+                                         float (&r)[MAXN]) {
+  if (vec) {
+    unsigned w[MAXN];
+    load_words<MAXN>(p, w);
+#pragma unroll
+    for (int k = 0; k < MAXN; ++k) r[k] = __uint_as_float(w[k]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < MAXN; ++k) r[k] = k < n ? p[k] : 0.0f;
+  }
+}
+
+template <int MAXN>
+__device__ __forceinline__ void load_row(const __nv_bfloat16* p, int n,
+                                         bool vec, float (&r)[MAXN]) {
+  if (vec) {  // element 2j in the low half of word j
+    unsigned w[MAXN / 2];
+    load_words<MAXN / 2>(p, w);
+#pragma unroll
+    for (int j = 0; j < MAXN / 2; ++j) {
+      r[2 * j] = __uint_as_float(w[j] << 16);
+      r[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < MAXN; ++k) r[k] = k < n ? to_f32(p[k]) : 0.0f;
+  }
+}
+
+template <int MAXN>
+__device__ __forceinline__ void store_row(float* p, int n, bool vec,
+                                          const float (&r)[MAXN]) {
+  if (vec) {
+    unsigned w[MAXN];
+#pragma unroll
+    for (int k = 0; k < MAXN; ++k) w[k] = __float_as_uint(r[k]);
+    store_words<MAXN>(p, w);
+  } else {
+#pragma unroll
+    for (int k = 0; k < MAXN; ++k)
+      if (k < n) p[k] = r[k];
+  }
+}
+
+template <int MAXN>
+__device__ __forceinline__ void store_row(__nv_bfloat16* p, int n, bool vec,
+                                          const float (&r)[MAXN]) {
+  if (vec) {
+    unsigned w[MAXN / 2];
+#pragma unroll
+    for (int j = 0; j < MAXN / 2; ++j)
+      w[j] = (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(r[2 * j]))
+             | ((unsigned)__bfloat16_as_ushort(
+                    __float2bfloat16_rn(r[2 * j + 1])) << 16);
+    store_words<MAXN / 2>(p, w);
+  } else {
+#pragma unroll
+    for (int k = 0; k < MAXN; ++k)
+      if (k < n) p[k] = __float2bfloat16_rn(r[k]);
+  }
+}
+
+// ---- node phase pieces -------------------------------------------------
+
+// Stage the tile of nodes [node0, node0 + cnt) in shared memory: each
+// node's slots (in-slot offset and count, out run: an int4 at slots[q];
+// zero past cnt), and its prox parameter rows as float32, node q's row
+// of parameter k at smem[offset[k] + q * stride[k]]: coalesced reads of
+// one contiguous span per table.
+template <typename T>
+__device__ __forceinline__ void stage_tile(const PdArgs& a, const Plan& p,
+                                           float* smem, long long node0,
+                                           int cnt) {
+  int4* slots = reinterpret_cast<int4*>(smem);
+  for (int q = threadIdx.x; q < p.tile; q += kThreads) {
+    int4 m = make_int4(0, 0, 0, 0);
+    if (q < cnt) {
+      const long long i = node0 + q;
+      m.x = a.in_ptr[i];
+      m.y = a.in_ptr[i + 1] - m.x;
+      const int2 run = reinterpret_cast<const int2*>(a.out_run)[i];
+      m.z = run.x;
+      m.w = run.y;
+    }
+    slots[q] = m;
+  }
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {  // unrolled: the plan stays in registers
+    if (k >= p.num_params) break;
+    const int el = p.elems[k], st = p.stride[k];
+    const T* g = static_cast<const T*>(a.prm[k]) + node0 * el;
+    float* s = smem + p.offset[k];
+    const int total = cnt * el;
+    for (int j = threadIdx.x; j < total; j += kThreads) {
+      const int q = j / el;
+      s[q * st + (j - q * el)] = to_f32(g[j]);
+    }
+  }
+}
+
+// This lane's share of D^T u for the node with staged slots m (lane of
+// `lanes`): slots lane, lane + lanes, ... of its in-edges (-1) then its
+// out run (+1), summed in that order; kUnroll slots per round, all loads
+// issued first.
+template <int MAXN, typename U>
+__device__ __forceinline__ void gather_share(const PdArgs& a, const U* u,
+                                             long long u_rows, bool vec,
+                                             int4 m, int lane, int lanes,
+                                             float (&acc)[MAXN]) {
+  const int n = a.n;
+#pragma unroll
+  for (int k = 0; k < MAXN; ++k) acc[k] = 0.0f;
+  const int p0 = m.x, nin = m.y, first = m.z;
+  const int deg = nin + m.w;
+  for (int s0 = lane; s0 < deg; s0 += kUnroll * lanes) {
+    int e[kUnroll];
+#pragma unroll
+    for (int q = 0; q < kUnroll; ++q) {
+      const int s = s0 + q * lanes;
+      const int id = s < nin ? a.in_ids[p0 + s] : first + (s - nin);
+      e[q] = id < 0 ? 0 : (id >= u_rows ? (int)(u_rows - 1) : id);
+    }
+    float r[kUnroll][MAXN];
+#pragma unroll
+    for (int q = 0; q < kUnroll; ++q)
+      if (s0 + q * lanes < deg)
+        load_row<MAXN>(u + (long long)e[q] * n, n, vec, r[q]);
+#pragma unroll
+    for (int q = 0; q < kUnroll; ++q) {
+      const int s = s0 + q * lanes;
+      if (s < deg) {
+#pragma unroll
+        for (int k = 0; k < MAXN; ++k)
+          acc[k] = s < nin ? acc[k] - r[q][k] : acc[k] + r[q][k];
+      }
+    }
+  }
+}
+
+// PU_i(v) of the loss into wp (n live entries of MAXN, zero past n), from
+// the node's staged parameter rows sp[k].
+template <int MAXN, int LOSS>
+__device__ __forceinline__ void prox(const PdArgs& a,
+                                     const float* const* sp,
                                      const float (&v)[MAXN],
                                      float (&wp)[MAXN]) {
   const int n = a.n;
   if (LOSS == kSquared) {  // params ("b", "p"): P (v + b)
+    const float* b = sp[0];
+    const float* P = sp[1];
     float vb[MAXN];
 #pragma unroll
-    for (int k = 0; k < MAXN; ++k)
-      if (k < n) vb[k] = v[k] + prm<T>(a, 0, i * n + k);
+    for (int k = 0; k < MAXN; ++k) vb[k] = k < n ? v[k] + b[k] : 0.0f;
 #pragma unroll
     for (int j = 0; j < MAXN; ++j) {
+      float s = 0.0f;
       if (j < n) {
-        float s = 0.0f;
 #pragma unroll
         for (int k = 0; k < MAXN; ++k)
-          if (k < n) s += prm<T>(a, 1, (i * n + j) * n + k) * vb[k];
-        wp[j] = s;
+          if (k < n) s += P[j * n + k] * vb[k];
       }
+      wp[j] = s;
     }
   } else if (LOSS == kLasso) {
     // params ("labeled", "m", "q", "step", "tau", "xty")
-    const float m = prm<T>(a, 1, i), step = prm<T>(a, 3, i);
-    const float tp = prm<T>(a, 4, i);
+    const float m = sp[1][0], step = sp[3][0], tp = sp[4][0];
+    const float* Q = sp[2];
+    const float* xty = sp[5];
     const float thr = a.alpha * step;
     float z[MAXN];
 #pragma unroll
@@ -154,8 +388,8 @@ __device__ __forceinline__ void prox(const PdArgs& a, long long i,
           float qz = 0.0f;
 #pragma unroll
           for (int k = 0; k < MAXN; ++k)
-            if (k < n) qz += prm<T>(a, 2, (i * n + j) * n + k) * z[k];
-          float g = 2.0f * (qz - prm<T>(a, 5, i * n + j)) / m;
+            if (k < n) qz += Q[j * n + k] * z[k];
+          float g = 2.0f * (qz - xty[j]) / m;
           g = g + (z[j] - v[j]) / tp;
           const float x = z[j] - step * g;
           const float sgn = (float)(x > 0.0f) - (float)(x < 0.0f);
@@ -167,13 +401,16 @@ __device__ __forceinline__ void prox(const PdArgs& a, long long i,
 #pragma unroll
       for (int k = 0; k < MAXN; ++k) z[k] = zn[k];
     }
-    const bool lab = prm<T>(a, 0, i) > 0.0f;
+    const bool lab = sp[0][0] > 0.0f;
 #pragma unroll
     for (int k = 0; k < MAXN; ++k) wp[k] = lab ? z[k] : v[k];
   } else {
     // params ("labeled", "m", "mask", "tau", "x", "y")
     const int ms = a.num_samples;
-    const float m = prm<T>(a, 1, i), tp = prm<T>(a, 3, i);
+    const float m = sp[1][0], tp = sp[3][0];
+    const float* mask = sp[2];
+    const float* xs = sp[4];
+    const float* ys = sp[5];
     float z[MAXN];
 #pragma unroll
     for (int k = 0; k < MAXN; ++k) z[k] = v[k];
@@ -186,19 +423,19 @@ __device__ __forceinline__ void prox(const PdArgs& a, long long i,
         for (int c = 0; c <= r; ++c) h[r][c] = 0.0f;
       }
       for (int j = 0; j < ms; ++j) {
-        const long long row = (i * ms + j) * n;
+        const float* row = xs + j * n;
         float x[MAXN];
         float logit = 0.0f;
 #pragma unroll
         for (int k = 0; k < MAXN; ++k) {
           if (k < n) {
-            x[k] = prm<T>(a, 4, row + k);
+            x[k] = row[k];
             logit += x[k] * z[k];
           }
         }
         const float s = 1.0f / (1.0f + expf(-logit));
-        const float mk = prm<T>(a, 2, i * ms + j);
-        const float res = (s - prm<T>(a, 5, i * ms + j)) * mk;
+        const float mk = mask[j];
+        const float res = (s - ys[j]) * mk;
         const float d = (s * (1.0f - s)) * mk;
 #pragma unroll
         for (int r = 0; r < MAXN; ++r) {
@@ -255,20 +492,31 @@ __device__ __forceinline__ void prox(const PdArgs& a, long long i,
       for (int k = 0; k < MAXN; ++k)
         if (k < n) z[k] = z[k] - g[k];
     }
-    const bool lab = prm<T>(a, 0, i) > 0.0f;
+    const bool lab = sp[0][0] > 0.0f;
 #pragma unroll
-    for (int k = 0; k < MAXN; ++k) wp[k] = lab ? z[k] : v[k];
+    for (int k = 0; k < MAXN; ++k) wp[k] = lab ? z[k] : (k < n ? v[k] : 0.0f);
   }
 }
 
+// Resident blocks per SM the register budget must allow.  The squared
+// loss's node phase is latency-bound gathers, which occupancy hides (5
+// blocks: 48 registers at n <= 2); the lasso's and logistic's proxes
+// spill under such a cap and lose more than the gathers gain.
+template <int MAXN, int LOSS> constexpr int min_blocks() {
+  return LOSS != kSquared ? 1 : (MAXN <= 2 ? 5 : (MAXN <= 4 ? 4 : 1));
+}
+
 template <int MAXN, int LOSS, typename T>
-__global__ void __launch_bounds__(kThreads)
-fused_pd_step_kernel(PdArgs a) {
+__global__ void __launch_bounds__(kThreads, min_blocks<MAXN, LOSS>())
+fused_pd_step_kernel(PdArgs a, Plan p) {
   // the stop word: a stopped tol solve writes nothing (uniform: every
   // thread returns before the first grid sync)
   if (a.active != nullptr && *a.active == 0) return;
   cg::grid_group grid = cg::this_grid();
+  // the tile: node slots, D^T u, then the staged parameters
+  extern __shared__ __align__(16) float smem[];
   const int n = a.n;
+  const bool vec = p.vec != 0;
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long tid0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const T* w_store = static_cast<const T*>(a.w_in);
@@ -276,6 +524,8 @@ fused_pd_step_kernel(PdArgs a) {
   T* w_out = static_cast<T*>(a.w_out);
   T* u_out = static_cast<T*>(a.u_out);
   const bool rounded_residual = a.iters == 1;
+  const int lanes = p.lanes, lane = threadIdx.x & (lanes - 1);
+  const int groups = kThreads / lanes;
   float rmax = 0.0f;
 
   for (int it = 0; it < a.iters; ++it) {
@@ -285,55 +535,76 @@ fused_pd_step_kernel(PdArgs a) {
     const long long u_rows = in_carry ? a.num_edges : a.u_rows;
 
     // ---- node phase: gather D^T u, loss prox, z, KM ------------------
-    for (long long i = tid0; i < a.num_nodes; i += stride) {
-      float dtu[MAXN];
+    for (long long tile = blockIdx.x; tile < p.num_tiles;
+         tile += gridDim.x) {
+      const long long node0 = tile * p.tile;
+      const long long left = a.num_nodes - node0;
+      const int cnt = left < p.tile ? (int)left : p.tile;
+      stage_tile<T>(a, p, smem, node0, cnt);
+      __syncthreads();
+      // warp-uniform trip count: p.tile is a multiple of a warp's groups;
+      // two nodes' gathers in flight per group
+#pragma unroll 2
+      for (int q = threadIdx.x / lanes; q < p.tile; q += groups) {
+        const int4 m = reinterpret_cast<const int4*>(smem)[q];
+        float acc[MAXN];
+        if (in_carry)
+          gather_share<MAXN>(a, a.u_carry, u_rows, vec, m, lane, lanes,
+                             acc);
+        else
+          gather_share<MAXN>(a, u_store, u_rows, vec, m, lane, lanes, acc);
+        for (int off = lanes >> 1; off > 0; off >>= 1) {
 #pragma unroll
-      for (int k = 0; k < MAXN; ++k) dtu[k] = 0.0f;
-      const int* ie = a.inc_edges + i * a.max_deg;
-      const float* is = a.inc_signs + i * a.max_deg;
-      for (int d = 0; d < a.max_deg; ++d) {
-        const float s = is[d];
-        if (s != 0.0f) {
-          long long e = ie[d];
-          e = e < 0 ? 0 : (e >= u_rows ? u_rows - 1 : e);
+          for (int k = 0; k < MAXN; ++k)
+            if (k < n) acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
+        }
+        if (lane == 0 && q < cnt) {
 #pragma unroll
-          for (int k = 0; k < MAXN; ++k) {
-            if (k < n) {
-              const float ue = in_carry ? a.u_carry[e * n + k]
-                                        : to_f32(u_store[e * n + k]);
-              dtu[k] += s * ue;
-            }
-          }
+          for (int k = 0; k < MAXN; ++k)
+            if (k < n) smem[p.doffset + q * p.dstride + k] = acc[k];
         }
       }
-      const float t = a.tau[i];
-      float w[MAXN], v[MAXN], wp[MAXN];
+      __syncthreads();
+      const int t = threadIdx.x;
+      if (t < cnt) {
+        const long long i = node0 + t;
+        float w[MAXN], v[MAXN], wp[MAXN], zr[MAXN], wn[MAXN];
+        if (in_carry)
+          load_row<MAXN>(a.w_carry + i * n, n, vec, w);
+        else
+          load_row<MAXN>(w_store + i * n, n, vec, w);
+        const float tt = a.tau[i];
 #pragma unroll
-      for (int k = 0; k < MAXN; ++k) {
-        w[k] = 0.0f;
-        if (k < n) {
-          w[k] = in_carry ? a.w_carry[i * n + k] : to_f32(w_store[i * n + k]);
-          v[k] = w[k] - t * dtu[k];
+        for (int k = 0; k < MAXN; ++k)
+          v[k] = k < n ? w[k] - tt * smem[p.doffset + t * p.dstride + k]
+                       : 0.0f;
+        const float* sp[6];
+#pragma unroll
+        for (int k = 0; k < 6; ++k)
+          sp[k] = smem + p.offset[k] + t * p.stride[k];
+        prox<MAXN, LOSS>(a, sp, v, wp);
+#pragma unroll
+        for (int j = 0; j < MAXN; ++j) {
+          zr[j] = 2.0f * wp[j] - w[j];
+          wn[j] = a.relax ? w[j] + a.rho * (wp[j] - w[j]) : wp[j];
+        }
+        store_row<MAXN>(a.z + i * n, n, vec, zr);
+        if (out_carry) {
+          store_row<MAXN>(a.w_carry + i * n, n, vec, wn);
         } else {
-          v[k] = 0.0f;
-        }
-      }
-      prox<MAXN, LOSS, T>(a, i, v, wp);
+          store_row<MAXN>(w_out + i * n, n, vec, wn);
+          if (rounded_residual) {
 #pragma unroll
-      for (int j = 0; j < MAXN; ++j) {
-        if (j < n) {
-          a.z[i * n + j] = 2.0f * wp[j] - w[j];
-          float wn = a.relax ? w[j] + a.rho * (wp[j] - w[j]) : wp[j];
-          if (out_carry) {
-            a.w_carry[i * n + j] = wn;
-          } else {
-            const T st = from_f32<T>(wn);
-            w_out[i * n + j] = st;
-            if (rounded_residual) wn = to_f32(st);
+            for (int j = 0; j < MAXN; ++j) wn[j] = rounded<T>(wn[j]);
           }
-          if (a.compute_residual) rmax = fmaxf(rmax, fabsf(wn - w[j]) / t);
+        }
+        if (a.compute_residual) {
+#pragma unroll
+          for (int j = 0; j < MAXN; ++j)
+            if (j < n) rmax = fmaxf(rmax, fabsf(wn[j] - w[j]) / tt);
         }
       }
+      __syncthreads();  // the next tile overwrites shared memory
     }
     grid.sync();
 
@@ -342,25 +613,37 @@ fused_pd_step_kernel(PdArgs a) {
       const long long s = a.src[e], d = a.dst[e];
       const float sg = a.sigma[e], l = a.la[e];
       const float scale = l / (l + sg);
-      const long long row = (u_off + e) * n;
-      for (int k = 0; k < n; ++k) {
-        const float u0 = in_carry ? a.u_carry[row + k]
-                                  : to_f32(u_store[row + k]);
-        const float x = u0 + sg * (a.z[s * n + k] - a.z[d * n + k]);
+      float u0[MAXN], zs[MAXN], zd[MAXN], y[MAXN];
+      if (in_carry)
+        load_row<MAXN>(a.u_carry + e * n, n, vec, u0);
+      else
+        load_row<MAXN>(u_store + (u_off + e) * n, n, vec, u0);
+      load_row<MAXN>(a.z + s * n, n, vec, zs);
+      load_row<MAXN>(a.z + d * n, n, vec, zd);
+#pragma unroll
+      for (int k = 0; k < MAXN; ++k) {
+        const float x = u0[k] + sg * (zs[k] - zd[k]);
         const float up = a.reg_kind == 0 ? clip(x, l) : x * scale;
-        float y = up;
+        float yk = up;
         if (a.relax) {
-          y = u0 + a.rho * (up - u0);
-          if (a.reg_kind == 0) y = clip(y, l);
+          yk = u0[k] + a.rho * (up - u0[k]);
+          if (a.reg_kind == 0) yk = clip(yk, l);
         }
-        if (out_carry) {
-          a.u_carry[e * n + k] = y;
-        } else {
-          const T st = from_f32<T>(y);
-          u_out[e * n + k] = st;
-          if (rounded_residual) y = to_f32(st);
+        y[k] = yk;
+      }
+      if (out_carry) {
+        store_row<MAXN>(a.u_carry + e * n, n, vec, y);
+      } else {
+        store_row<MAXN>(u_out + e * n, n, vec, y);
+        if (rounded_residual) {
+#pragma unroll
+          for (int k = 0; k < MAXN; ++k) y[k] = rounded<T>(y[k]);
         }
-        if (a.compute_residual) rmax = fmaxf(rmax, fabsf(y - u0) / sg);
+      }
+      if (a.compute_residual) {
+#pragma unroll
+        for (int k = 0; k < MAXN; ++k)
+          if (k < n) rmax = fmaxf(rmax, fabsf(y[k] - u0[k]) / sg);
       }
     }
     if (it + 1 < a.iters) grid.sync();
@@ -369,40 +652,115 @@ fused_pd_step_kernel(PdArgs a) {
   if (a.compute_residual) {
     for (int off = 16; off > 0; off >>= 1)
       rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
-    __shared__ float warp_max[kThreads / 32];
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    if (lane == 0) warp_max[warp] = rmax;
+    __shared__ float warp_max[kWarps];
+    const int wl = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (wl == 0) warp_max[warp] = rmax;
     __syncthreads();
     if (threadIdx.x == 0) {
       float m = 0.0f;
-      for (int k = 0; k < kThreads / 32; ++k) m = fmaxf(m, warp_max[k]);
+      for (int k = 0; k < kWarps; ++k) m = fmaxf(m, warp_max[k]);
       atomicMax(reinterpret_cast<int*>(a.res), __float_as_int(m));
     }
   }
 }
 
+inline bool aligned16(const void* q) {
+  return (reinterpret_cast<std::uintptr_t>(q) & 15u) == 0;
+}
+
+// What one node of a launch stages: the count and shapes of the loss's
+// prox parameters (elements per node of each, as kernels/pd_step.py
+// checks them), their shared rows (each padded to an odd number of
+// words) and the D^T u row.  Returns the node's shared bytes: its slots
+// (an int4), its D^T u row and its parameter rows.  The one count of
+// them: make_plan sizes tiles with it, and the wrapper and the solver's
+// fused gate read it through fused_pd_step_staging (pd_step.cu).
+inline long long stage_layout(int loss, int n, int ms, Plan& p) {
+  p = Plan{};
+  if (loss == kSquared) {
+    p.num_params = 2;
+    p.elems[0] = n; p.elems[1] = n * n;                        // b, p
+  } else if (loss == kLasso) {
+    p.num_params = 6;                     // labeled, m, q, step, tau, xty
+    const int el[6] = {1, 1, n * n, 1, 1, n};
+    for (int k = 0; k < 6; ++k) p.elems[k] = el[k];
+  } else {
+    p.num_params = 6;                     // labeled, m, mask, tau, x, y
+    const int el[6] = {1, 1, ms, 1, ms * n, ms};
+    for (int k = 0; k < 6; ++k) p.elems[k] = el[k];
+  }
+  p.dstride = n | 1;
+  long long per_node = 4 + p.dstride;             // slots (int4), D^T u
+  for (int k = 0; k < p.num_params; ++k) {
+    p.stride[k] = p.elems[k] | 1;
+    per_node += p.stride[k];
+  }
+  return 4 * per_node;
+}
+
+// The launch plan of one loss at register tile MAXN: staged parameter
+// shapes, tile, lanes, vector rows.  Returns the shared bytes, or -1
+// when one node's parameters do not fit a block's shared memory.
+template <int MAXN, int LOSS>
+long long make_plan(const PdArgs& a, Plan& p) {
+  const long long node_bytes = stage_layout(LOSS, a.n, a.num_samples, p);
+  if (node_bytes > kSmemMax) return -1;
+  p.tile = kMaxTile;
+  while (p.tile > 1 && p.tile * node_bytes > kSmemTarget) p.tile >>= 1;
+  p.doffset = 4 * p.tile;
+  long long off = p.doffset + (long long)p.tile * p.dstride;
+  for (int k = 0; k < 6; ++k) {
+    p.offset[k] = (int)off;
+    if (k < p.num_params) off += (long long)p.tile * p.stride[k];
+  }
+  p.num_tiles = (a.num_nodes + p.tile - 1) / p.tile;
+  // about kUnroll slots per lane at the mean degree, and every thread of
+  // the block on some node of the tile
+  const double mean_deg =
+      a.num_nodes > 0 ? 2.0 * (double)a.num_in / (double)a.num_nodes : 0.0;
+  int lanes = 1;
+  while (lanes < 32 && lanes * kUnroll < mean_deg) lanes <<= 1;
+  while (lanes < 32 && lanes * p.tile < kThreads) lanes <<= 1;
+  p.lanes = lanes;
+  p.vec = a.n == MAXN && aligned16(a.w_in) && aligned16(a.u_in) &&
+          aligned16(a.w_out) && aligned16(a.u_out) &&
+          aligned16(a.w_carry) && aligned16(a.u_carry) && aligned16(a.z);
+  return off * 4;
+}
+
 template <int MAXN, int LOSS, typename T>
 cudaError_t launch(const PdArgs& args, cudaStream_t stream) {
+  Plan plan;
+  const long long smem = make_plan<MAXN, LOSS>(args, plan);
+  if (smem < 0) return cudaErrorInvalidValue;
+  auto kernel = fused_pd_step_kernel<MAXN, LOSS, T>;
+  cudaError_t err;
+  if (smem > kSmemDefault) {  // opt in past the default per-block limit
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+  }
   int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, fused_pd_step_kernel<MAXN, LOSS, T>, kThreads, 0);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, (size_t)smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorLaunchOutOfResources;
-  const long long work =
-      args.num_nodes > args.num_edges ? args.num_nodes : args.num_edges;
-  long long blocks = (work + kThreads - 1) / kThreads;
+  const long long edge_blocks = (args.num_edges + kThreads - 1) / kThreads;
+  long long blocks =
+      plan.num_tiles > edge_blocks ? plan.num_tiles : edge_blocks;
   const long long resident = (long long)per_sm * sms;
   if (blocks > resident) blocks = resident;
   if (blocks < 1) blocks = 1;
   PdArgs local = args;
-  void* kargs[] = {&local};
-  err = cudaLaunchCooperativeKernel(
-      (void*)fused_pd_step_kernel<MAXN, LOSS, T>, dim3((unsigned)blocks),
-      dim3(kThreads), kargs, 0, stream);
+  void* kargs[] = {&local, &plan};
+  err = cudaLaunchCooperativeKernel((void*)kernel, dim3((unsigned)blocks),
+                                    dim3(kThreads), kargs, (size_t)smem,
+                                    stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

@@ -13,12 +13,14 @@ import numpy as np
 import torch
 
 from repro_torch.api.problem import Problem
-from repro_torch.core.graph import EdgeBlockLayout, EmpiricalGraph
+from repro_torch.core.graph import (EdgeBlockLayout, EmpiricalGraph,
+                                    compact_incidence)
 from repro_torch.core.losses import NodeData
 from repro_torch.device import resolve_device
 
 _INT_FIELDS = ("src", "dst", "inc_edges", "node_perm", "node_inv",
-               "edge_pos")
+               "edge_pos", "in_ptr", "in_ids", "out_run")
+_COMPACT_FIELDS = ("in_ptr", "in_ids", "out_run")
 
 
 def _tensor(name: str, a, dev: torch.device) -> torch.Tensor:
@@ -48,8 +50,14 @@ def node_data_from_arrays(x, y, sample_mask, labeled_mask,
 
 def layout_from_arrays(fields: dict, device=None) -> EdgeBlockLayout:
     """An :class:`EdgeBlockLayout` from a dict of every field by name
-    (the int extents and the arrays)."""
+    (the int extents and the arrays).  The compact incidence, a field of
+    the port only, is built from the padded tables where the dict lacks
+    it (a reference layout)."""
     dev = resolve_device(device)
+    if any(k not in fields for k in _COMPACT_FIELDS):
+        compact = compact_incidence(np.asarray(fields["inc_edges"]),
+                                    np.asarray(fields["inc_signs"]))
+        fields = dict(fields, **dict(zip(_COMPACT_FIELDS, compact)))
     kw = {}
     for f in dataclasses.fields(EdgeBlockLayout):
         v = fields[f.name]

@@ -29,19 +29,24 @@ def batched_affine(p, v):
 
 
 def pd_step(w_store, u_store, inc_edges, inc_signs, params, tau, src, dst,
-            sigma, la, *, loss, reg, pkeys, block_nodes, block_edges, kn,
-            klo, khi, rho=1.0, iters=1, compute_residual=False, out=None,
-            active=None):
+            sigma, la, *, incidence, loss, reg, pkeys, block_nodes,
+            block_edges, kn, klo, khi, rho=1.0, iters=1,
+            compute_residual=False, out=None, active=None):
     """Fused primal-dual step over an edge-blocked layout (Algorithm 1
-    body in one pass): the CUDA kernel for tensors on the card, the plain
-    version for tensors on the CPU.  ``params`` is the tuple of
-    ``loss.prox_setup`` leaves in ``pkeys`` (sorted-key) order; shapes,
-    the in-place ``out`` and the stop word ``active`` per
-    ``kernels.ref.fused_pd_step_ref``."""
-    fn = (_ref.fused_pd_step_ref if w_store.device.type == "cpu"
-          else _fused_pd_step)
-    return fn(w_store, u_store, inc_edges, inc_signs, params, tau, src,
-              dst, sigma, la, loss=loss, reg=reg, pkeys=pkeys,
-              block_nodes=block_nodes, block_edges=block_edges, kn=kn,
-              klo=klo, khi=khi, rho=rho, iters=iters,
-              compute_residual=compute_residual, out=out, active=active)
+    body in one pass): the CUDA kernel for tensors on the card, reading
+    the layout's compact incidence ``incidence``
+    (``EdgeBlockLayout.compact``); the plain version for tensors on the
+    CPU, reading the padded tables ``inc_edges`` / ``inc_signs``.
+    ``params`` is the tuple of ``loss.prox_setup`` leaves in ``pkeys``
+    (sorted-key) order; shapes, the in-place ``out`` and the stop word
+    ``active`` per ``kernels.ref.fused_pd_step_ref``."""
+    kw = dict(loss=loss, reg=reg, pkeys=pkeys, block_nodes=block_nodes,
+              block_edges=block_edges, kn=kn, klo=klo, khi=khi, rho=rho,
+              iters=iters, compute_residual=compute_residual, out=out,
+              active=active)
+    if w_store.device.type == "cpu":
+        return _ref.fused_pd_step_ref(w_store, u_store, inc_edges,
+                                      inc_signs, params, tau, src, dst,
+                                      sigma, la, **kw)
+    return _fused_pd_step(w_store, u_store, params, tau, src, dst, sigma,
+                          la, incidence=incidence, **kw)

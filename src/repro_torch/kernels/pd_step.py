@@ -8,8 +8,13 @@ ISTA or logistic Newton), D(2w+ - w), tv / tv2 dual resolvent, KM
 relaxation, and optionally the eq.-11 residual and ``iters > 1`` on a
 single-block layout — as one cooperative launch, in float32 or bfloat16
 storage with float32 arithmetic; its source note says what bounds it and
-how the design answers that.  :func:`kernels.ref.fused_pd_step_ref` is
-its plain version.
+how the design answers that.  It reads the layout's compact incidence
+(``EdgeBlockLayout.compact``, passed as ``incidence``), where its plain
+version, :func:`kernels.ref.fused_pd_step_ref`, reads the padded tables
+``inc_edges`` / ``inc_signs``; the kernel takes no padded tables.  It
+stages each node's prox parameters in shared memory, so a node whose
+parameters pass a block's shared memory (:func:`staging_bytes`) is
+refused.
 
 Build: ``kernels/_build.py`` compiles it with the port's other CUDA
 sources into one shared library on first use; nothing is built or loaded
@@ -48,14 +53,14 @@ class _PdArgs(ctypes.Structure):
     """``repro_pd::PdArgs`` of ``csrc/pd_step.cuh``, field for field."""
 
     _fields_ = [
-        ("w_in", _P), ("u_in", _P), ("inc_edges", _P), ("inc_signs", _P),
-        ("prm", _P * 6), ("tau", _P), ("src", _P), ("dst", _P),
-        ("sigma", _P), ("la", _P), ("w_out", _P), ("u_out", _P),
+        ("w_in", _P), ("u_in", _P), ("in_ptr", _P), ("in_ids", _P),
+        ("out_run", _P), ("prm", _P * 6), ("tau", _P), ("src", _P),
+        ("dst", _P), ("sigma", _P), ("la", _P), ("w_out", _P), ("u_out", _P),
         ("w_carry", _P), ("u_carry", _P), ("z", _P), ("res", _P),
         ("active", _P),
         ("num_nodes", _I64), ("num_edges", _I64), ("u_offset", _I64),
-        ("u_rows", _I64),
-        ("n", _I32), ("max_deg", _I32), ("reg_kind", _I32), ("relax", _I32),
+        ("u_rows", _I64), ("num_in", _I64),
+        ("n", _I32), ("reg_kind", _I32), ("relax", _I32),
         ("rho", _F32), ("iters", _I32), ("compute_residual", _I32),
         ("loss_kind", _I32), ("storage", _I32), ("num_samples", _I32),
         ("num_inner", _I32), ("alpha", _F32),
@@ -78,19 +83,49 @@ def _param_shapes(kind: int, rows: int, n: int, params: tuple) -> list:
     return [col, col, (rows, ms), col, (rows, ms, n), (rows, ms)]
 
 
+def staging_bytes(kind: int, n: int, num_samples: int) -> tuple[int, int]:
+    """``(bytes, limit)``: the shared memory the kernel stages for each
+    node of a launch of loss kind ``kind`` (``_LOSSES``) at ``n``
+    features and ``num_samples`` samples a node, and the most a block may
+    stage.  The kernel's own count (``csrc/pd_step.cu:
+    fused_pd_step_staging``); builds the library on first use."""
+    node, limit = ctypes.c_longlong(), ctypes.c_longlong()
+    err = _build.entry("fused_pd_step_staging",
+                       [_I32, _I32, _I32, ctypes.POINTER(ctypes.c_longlong),
+                        ctypes.POINTER(ctypes.c_longlong)])(
+        kind, n, num_samples, ctypes.byref(node), ctypes.byref(limit))
+    if err != 0:
+        raise RuntimeError(f"fused_pd_step_staging failed: CUDA error {err}")
+    return node.value, limit.value
+
+
+def stages_fit(loss, n: int, num_samples: int) -> bool:
+    """Whether a node of ``loss`` at ``n`` features and ``num_samples``
+    samples a node fits the kernel's shared-memory staging.  A loss the
+    kernel has no prox for is not refused here (the wrapper refuses
+    it)."""
+    name = getattr(loss, "name", None)
+    if name not in _LOSSES:
+        return True
+    need, limit = staging_bytes(_LOSSES[name][0], n, num_samples)
+    return need <= limit
+
+
 def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
-                  inc_edges: torch.Tensor, inc_signs: torch.Tensor,
                   params: tuple, tau: torch.Tensor,
                   src: torch.Tensor, dst: torch.Tensor, sigma: torch.Tensor,
-                  la: torch.Tensor, *, loss, reg, pkeys: tuple,
-                  block_nodes: int, block_edges: int,
+                  la: torch.Tensor, *, incidence: tuple, loss, reg,
+                  pkeys: tuple, block_nodes: int, block_edges: int,
                   kn: int, klo: int, khi: int, rho: float = 1.0,
                   iters: int = 1, compute_residual: bool = False,
                   out: tuple | None = None,
                   active: torch.Tensor | None = None):
     """Fused PD step on the card (storage shapes and ``out`` / ``active``
-    as :func:`kernels.ref.fused_pd_step_ref`).  Returns (w_new (nb*BV,
-    n), u_new (nb*EB, n)) in the storage dtype — fresh tensors, or the
+    as :func:`kernels.ref.fused_pd_step_ref`).  ``incidence`` is the
+    layout's compact incidence ``(in_ptr, in_ids, out_run)``
+    (``EdgeBlockLayout.compact``), which the kernel reads where its plain
+    version reads the padded tables.  Returns (w_new (nb*BV, n), u_new
+    (nb*EB, n)) in the storage dtype — fresh tensors, or the
     ``out`` pair the launch wrote (it may be the owned rows of
     ``w_store`` / ``u_store``: the kernel updates in place safely); with
     ``compute_residual`` also the f32 scalar eq.-11 residual of the call.
@@ -135,11 +170,8 @@ def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
     device = w_store.device
     f32, i32 = torch.float32, torch.int32
     rows = (nb + kn - 1) * bv
-    max_deg = inc_edges.shape[1]
     _check("w_store", w_store, (rows, n), store, device)
     _check("u_store", u_store, ((nb + klo + khi) * eb, n), store, device)
-    _check("inc_edges", inc_edges, (rows, max_deg), i32, device)
-    _check("inc_signs", inc_signs, (rows, max_deg), f32, device)
     params = tuple(params)
     shapes = _param_shapes(kind, rows, n, params)
     if len(params) != len(shapes):
@@ -147,10 +179,24 @@ def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
                          f"{len(params)}")
     for key, t, shape in zip(pkeys, params, shapes):
         _check(f"params[{key!r}]", t, shape, store, device)
+    num_samples = params[4].shape[1] if kind == 2 else 0
     _check("tau", tau, (rows, 1), f32, device)
     for label, t, dt in (("src", src, i32), ("dst", dst, i32),
                          ("sigma", sigma, f32), ("la", la, f32)):
         _check(label, t, (nb * eb, 1), dt, device)
+    if (not isinstance(incidence, (tuple, list)) or len(incidence) != 3
+            or any(t is None for t in incidence)):
+        raise ValueError("fused_pd_step reads the compact incidence: pass "
+                         "incidence=(in_ptr, in_ids, out_run), the "
+                         "layout's EdgeBlockLayout.compact")
+    in_ptr, in_ids, out_run = incidence
+    _check("incidence in_ptr", in_ptr, (nb * bv + 1,), i32, device)
+    _check("incidence out_run", out_run, (nb * bv, 2), i32, device)
+    if in_ids.ndim != 1 or in_ids.shape[0] > nb * eb:
+        raise ValueError(f"incidence in_ids must hold one id per in-edge "
+                         f"slot, at most {nb * eb}; got "
+                         f"{tuple(in_ids.shape)}")
+    _check("incidence in_ids", in_ids, tuple(in_ids.shape), i32, device)
     if out is not None:
         _check("out[0]", out[0], (nb * bv, n), store, device)
         _check("out[1]", out[1], (nb * eb, n), store, device)
@@ -166,6 +212,13 @@ def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
         raise ValueError(f"fused_pd_step launches on CUDA tensors; got "
                          f"{device} (kernels.ops.pd_step sends CPU tensors "
                          "to the plain version)")
+    need, limit = staging_bytes(kind, n, num_samples)
+    if need > limit:
+        raise NotImplementedError(
+            f"the fused_pd_step kernel stages a node's prox parameters in "
+            f"shared memory, at most {limit} bytes; {name} at n = {n}"
+            + (f" with {num_samples} samples a node" if kind == 2 else "")
+            + f" needs {need} (the solver runs such a problem unfused)")
 
     if out is None:
         out = (torch.empty((nb * bv, n), dtype=store, device=device),
@@ -179,18 +232,17 @@ def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
         carry = (torch.empty((nb * bv, n), dtype=f32, device=device),
                  torch.empty((nb * eb, n), dtype=f32, device=device))
     args = _PdArgs(
-        w_store.data_ptr(), u_store.data_ptr(), inc_edges.data_ptr(),
-        inc_signs.data_ptr(),
+        w_store.data_ptr(), u_store.data_ptr(), in_ptr.data_ptr(),
+        in_ids.data_ptr(), out_run.data_ptr(),
         (_P * 6)(*([t.data_ptr() for t in params]
                    + [None] * (6 - len(params)))),
         tau.data_ptr(), src.data_ptr(), dst.data_ptr(), sigma.data_ptr(),
         la.data_ptr(), w_new.data_ptr(), u_new.data_ptr(),
         carry[0].data_ptr(), carry[1].data_ptr(), z.data_ptr(),
         res.data_ptr(), None if active is None else active.data_ptr(),
-        nb * bv, nb * eb, klo * eb, u_store.shape[0],
-        n, max_deg, reg_kind, int(rho != 1.0), float(rho), int(iters),
-        int(compute_residual), kind, _STORAGE[store],
-        params[4].shape[1] if kind == 2 else 0,
+        nb * bv, nb * eb, klo * eb, u_store.shape[0], in_ids.shape[0],
+        n, reg_kind, int(rho != 1.0), float(rho), int(iters),
+        int(compute_residual), kind, _STORAGE[store], num_samples,
         int(getattr(loss, "num_inner", 0)),
         float(getattr(loss, "alpha", 0.0)))
     stream = torch.cuda.current_stream(device).cuda_stream

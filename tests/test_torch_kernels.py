@@ -19,7 +19,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.api.losses import (LassoLoss, LogisticLoss,  # noqa: E402
                                     SquaredLoss)
 from repro_torch.api.regularizers import SquaredTV, TotalVariation  # noqa
-from repro_torch.core.graph import plan_edge_blocks, sbm_graph  # noqa: E402
+from repro_torch.core.graph import (compact_incidence,          # noqa: E402
+                                    plan_edge_blocks, sbm_graph)
 from repro_torch.kernels import ops, ref                    # noqa: E402
 from repro_torch.kernels.pd_step import fused_pd_step       # noqa: E402
 from repro_torch.kernels.ridge_prox import batched_affine   # noqa: E402
@@ -123,6 +124,14 @@ def _loss_arrays(loss, v, n, bv, seed):
                           + ((0, 0),) * (a.ndim - 1)) for a in leaves)
     arrays = arrays[:4] + (params,) + arrays[5:]
     return arrays, dict(ext, pkeys=PKEYS[loss])
+
+
+def _incidence(arrays, ext, device="cpu"):
+    """The compact incidence of the step's layout nodes (the first
+    nb*BV rows of its padded tables), as the CUDA kernel takes it."""
+    nodes = arrays[8].shape[0] // ext["block_edges"] * ext["block_nodes"]
+    return tuple(_to_torch(a, device) for a in compact_incidence(
+        arrays[2][:nodes], arrays[3][:nodes]))
 
 
 def _port_loss(loss):
@@ -322,10 +331,17 @@ def test_stop_word_and_in_place_out():
             assert float(r_o) == 0.0
 
 
+def _kernel_args(args):
+    """The CUDA wrapper's positional arguments from the plain version's:
+    the kernel reads the compact incidence, not the padded tables."""
+    return list(args[:2]) + list(args[4:])
+
+
 def _wrapper_args(loss, n=2):
     arrays, ext = _loss_arrays(loss, 40, n, 16, seed=5)
-    return list(_as(arrays, _to_torch)), dict(
-        ext, loss=_port_loss(loss), reg=REGS["tv"], rho=1.9)
+    return _kernel_args(_as(arrays, _to_torch)), dict(
+        ext, loss=_port_loss(loss), reg=REGS["tv"], rho=1.9,
+        incidence=_incidence(arrays, ext))
 
 
 @pytest.mark.parametrize("loss,k", [(loss, k) for loss in PKEYS
@@ -334,19 +350,19 @@ def test_wrapper_refuses_wrongly_typed_params(loss, k):
     """The CUDA wrapper checks every prox parameter's dtype (the storage
     dtype), shape and contiguity before it looks for the card."""
     args, kw = _wrapper_args(loss)
-    params = list(args[4])
+    params = list(args[2])
     good = params[k]
     params[k] = good.double()
-    args[4] = tuple(params)
+    args[2] = tuple(params)
     with pytest.raises(TypeError, match=PKEYS[loss][k]):
         fused_pd_step(*args, **kw)
     params[k] = good[:-1]
-    args[4] = tuple(params)
+    args[2] = tuple(params)
     with pytest.raises(ValueError, match="shape"):
         fused_pd_step(*args, **kw)
     if good.ndim > 1 and good.shape[1] > 1:
         params[k] = good.transpose(0, 1).contiguous().transpose(0, 1)
-        args[4] = tuple(params)
+        args[2] = tuple(params)
         with pytest.raises(ValueError, match="contiguous"):
             fused_pd_step(*args, **kw)
 
@@ -360,7 +376,7 @@ def test_wrapper_refuses_wide_features_and_cpu_tensors():
         with pytest.raises(ValueError, match="CUDA"):
             fused_pd_step(*args, **kw)
     args, kw = _wrapper_args("squared")
-    args[4] = args[4] + (args[4][0],)
+    args[2] = args[2] + (args[2][0],)
     with pytest.raises(NotImplementedError, match="no prox"):
         fused_pd_step(*args, **dict(kw, pkeys=("b", "p", "q")))
 
@@ -371,14 +387,15 @@ def test_ops_routes_cpu_tensors_to_plain_version():
     arrays, ext = _step_arrays(61, 2, 16, seed=1)
     t_args = _as(arrays, _to_torch)
     kw = dict(ext, loss=SquaredLoss(), reg=TotalVariation(), rho=1.9)
+    inc = _incidence(arrays, ext)
     before = fused_pd_step.launches
-    got = ops.pd_step(*t_args, **kw)
+    got = ops.pd_step(*t_args, **kw, incidence=inc)
     want = ref.fused_pd_step_ref(*t_args, **kw)
     for o, w in zip(got, want):
         assert torch.equal(o, w)
     assert fused_pd_step.launches == before
     with pytest.raises(ValueError, match="CUDA"):
-        fused_pd_step(*t_args, **kw)
+        fused_pd_step(*_kernel_args(t_args), **kw, incidence=inc)
 
 
 @pytest.mark.cuda
@@ -395,7 +412,8 @@ def test_cuda_kernel_matches_plain_version(v, n, bv, rho, reg):
     kw = dict(ext, loss=SquaredLoss(), reg=REGS[reg], rho=rho,
               compute_residual=True)
     iters = 5 if bv is None else 1
-    got = fused_pd_step(*args, **kw, iters=iters)
+    got = fused_pd_step(*_kernel_args(args), **kw, iters=iters,
+                        incidence=_incidence(arrays, ext, "cuda"))
     want = ref.fused_pd_step_ref(*args, **kw, iters=iters)
     torch.cuda.synchronize()
     for o, w in zip(got, want):
@@ -435,7 +453,8 @@ def test_cuda_loss_variants_match_plain_version(loss, dtype, v, n, bv,
     kw = dict(ext, loss=_port_loss(loss), reg=REGS["tv" if v % 2 else "tv2"],
               rho=1.9, iters=iters, compute_residual=True)
     before = fused_pd_step.variant_launches[f"{loss}/{dtype}"]
-    got = fused_pd_step(*args, **kw)
+    got = fused_pd_step(*_kernel_args(args), **kw,
+                        incidence=_incidence(arrays, ext, "cuda"))
     want = ref.fused_pd_step_ref(*args, **kw)
     torch.cuda.synchronize()
     assert fused_pd_step.variant_launches[f"{loss}/{dtype}"] == before + 1
@@ -464,7 +483,8 @@ def test_cuda_stop_word_and_in_place_out(loss):
     arrays, ext = _loss_arrays(loss, 61, 2, 16, seed=3)
     args = _cuda_args(arrays, "float32")
     kw = dict(ext, loss=_port_loss(loss), reg=REGS["tv"], rho=1.9,
-              compute_residual=True)
+              compute_residual=True, incidence=_incidence(arrays, ext, "cuda"))
+    args = _kernel_args(args)
     w_f, u_f, r_f = fused_pd_step(*args, **kw)
     lo = ext["klo"] * ext["block_edges"]
     for flag in (True, False):

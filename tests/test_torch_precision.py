@@ -134,9 +134,16 @@ def test_kernel_safe_matches_reference(name):
 @pytest.fixture
 def on_cuda(monkeypatch):
     """Problems report a CUDA device (their tensors stay on the CPU), so
-    the dispatch gate decides as it does on the card."""
+    the dispatch gate decides as it does on the card.  The gate also asks
+    the kernel library how many bytes a node stages; the CPU has no such
+    library, so that count is stubbed to fit (these problems' nodes
+    stage under 2 KB; tests/test_torch_incidence.py covers a node past
+    the limit)."""
+    from repro_torch.kernels import pd_step
     monkeypatch.setattr(Problem, "device",
                         property(lambda self: torch.device("cuda")))
+    monkeypatch.setattr(pd_step, "staging_bytes",
+                        lambda kind, n, num_samples: (0, 1))
 
 
 @pytest.mark.parametrize("name", ["sbm_regression", "sparse_lasso",
