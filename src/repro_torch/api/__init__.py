@@ -14,12 +14,12 @@ from repro_torch.api.regularizers import (REGULARIZERS, Regularizer,
                                           SquaredTV, TotalVariation,
                                           get_regularizer,
                                           register_regularizer)
-from repro_torch.api.solver import Solver, solve_many, solve_path
+from repro_torch.api.solver import Solver, solve, solve_many, solve_path
 
 __all__ = [
     "BACKENDS", "LOSSES", "LassoLoss", "LogisticLoss", "Loss", "Problem",
     "REGULARIZERS", "Regularizer", "SolveResult", "Solver", "SolverConfig",
     "SquaredLoss", "SquaredTV", "TotalVariation", "get_backend", "get_loss", "get_regularizer",
-    "register_backend", "register_loss", "register_regularizer",
+    "register_backend", "register_loss", "register_regularizer", "solve",
     "solve_many", "solve_path",
 ]

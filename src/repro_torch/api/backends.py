@@ -24,16 +24,26 @@ device_fetch` of its stopping iteration.  ``dtype="bfloat16"`` is a
 storage policy of the fused path (bf16 state and prox parameters, f32
 arithmetic); the dense and unfused paths run float32 and refuse it.
 
+Lanes.  ``api.solver.solve_path`` and ``solve_many`` run many problems
+as one solve over a leading lane axis, where the reference vmaps its
+engines: a lambda path (one graph, one lambda per lane; the dense and
+unfused engines through ``_solve_dense_path``, the fused one through
+``_solve_fused`` with ``lams``) and a batch of shape-matched problems
+(``solve_dense_batched``: graphs, data and lambdas per lane).  The
+kernels take the lane axis in one launch each.
+
 The reference's ``sharded``, ``sharded_fused`` and ``federated``
 backends are not in the port yet: each raises ``NotImplementedError``
 naming the ``ROADMAP.md`` item that brings it.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import weakref
 from typing import Callable
 
+import numpy as np
 import torch
 
 from repro_torch.api.losses import Loss, SquaredLoss
@@ -42,8 +52,9 @@ from repro_torch.api.regularizers import TotalVariation
 from repro_torch.core.graph import graph_signal_mse, plan_edge_blocks
 from repro_torch.core.losses import NodeData
 from repro_torch.core.partition import gather_padded
-from repro_torch.engine import (DenseExecutor, certificate, device_fetch,
-                                device_loop, pd_residual, scan_solve)
+from repro_torch.engine import (BatchedDenseExecutor, DenseExecutor,
+                                certificate, device_fetch, device_loop,
+                                pd_residual, scan_solve)
 from repro_torch.engine import pd_step as engine_pd_step
 from repro_torch.kernels import ops, pd_step as pd_kernel
 
@@ -142,6 +153,33 @@ def _initial_state(problem: Problem, w0, u0):
                       device=dev) if u0 is None
           else torch.as_tensor(u0, dtype=torch.float32, device=dev))
     return w0, u0
+
+
+def lane_values(values, device) -> torch.Tensor:
+    """One float32 per lane on ``device`` from host values, made on the
+    device (``torch.full``): no host-to-device copy, which would
+    synchronize the card."""
+    return torch.stack([torch.full((), float(v), dtype=torch.float32,
+                                   device=device) for v in values])
+
+
+def lane_metrics(fns: list) -> Callable:
+    """``metrics(w_b) -> (objective (L,), mse (L,))`` from one metric
+    function per lane, each evaluated on its lane: the one-problem
+    formulas, so every lane's trace is the one its own solve records."""
+    def metrics(w_b):
+        rec = [fn(w_b[i]) for i, fn in enumerate(fns)]
+        return tuple(torch.stack(col) for col in zip(*rec))
+
+    return metrics
+
+
+def _batched_certificate(problems: list, w_b, u_b) -> dict:
+    """The eq.-11 certificate of each lane (``problems[i]`` at ``w_b[i]``,
+    ``u_b[i]``), stacked: ``{name: (L,)}`` (the reference vmaps
+    ``certificate``)."""
+    rows = [certificate(p, w_b[i], u_b[i]) for i, p in enumerate(problems)]
+    return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
 
 
 # ---------------------------------------------------------------------------
@@ -376,19 +414,23 @@ def _fused_window_fits(problem: Problem,
     The estimate is dtype-aware, as the reference's: the storage
     policy's itemsize scales the state and prox-parameter bytes
     (``EdgeBlockLayout.window_bytes``) and feeds the block-size
-    auto-tuner.  On the card one node's prox parameters must also fit
-    the kernel's shared-memory staging (``kernels.pd_step.stages_fit``,
-    the counterpart of the TPU's VMEM cap): a logistic node with some
-    ten thousand samples does not, and runs unfused.
+    auto-tuner.  On the card the kernel must also take the problem, the
+    counterpart of the TPU's VMEM cap: its register tiles go to
+    ``kernels.pd_step.MAX_FEATURES`` features, and one node's prox
+    parameters must fit its shared-memory staging
+    (``kernels.pd_step.stages_fit``: a logistic node with some ten
+    thousand samples does not).  Such a problem runs unfused.
     """
-    num_samples = problem.data.x.shape[1]
+    num_samples = problem.data.x.shape[-2]
     try:
         param_floats = problem.loss.prox_param_floats(
             num_samples, problem.num_features)
     except NotImplementedError:
         return False
-    if problem.device.type == "cuda" and not pd_kernel.stages_fit(
-            problem.loss, problem.num_features, num_samples):
+    if problem.device.type == "cuda" and (
+            problem.num_features > pd_kernel.MAX_FEATURES
+            or not pd_kernel.stages_fit(problem.loss, problem.num_features,
+                                        num_samples)):
         return False
     itemsize = 4
     if config is not None:
@@ -414,7 +456,10 @@ def _fused_setup(graph, data, lam, w_true, *, loss, reg, layout,
     the dense engine's formulas, in f32).
 
     ``dtype`` is the storage policy: float prox-parameter stores are cast
-    to it, while tau, sigma, la and src/dst stay f32 or int.
+    to it, while tau, sigma, la and src/dst stay f32 or int.  ``lam`` a
+    sequence of host floats is a lambda path: la is then (L, nb*EB, 1),
+    one column per lane, and the metric fn maps (L, rows, n) to per-lane
+    (L,) traces; everything else is shared by the lanes.
     """
     lt = layout
     # the paper-eq.-13 stepsizes come from the one source of truth
@@ -439,12 +484,19 @@ def _fused_setup(graph, data, lam, w_true, *, loss, reg, layout,
     tau_s = lt.pad_node_store(tau_l[:, None])
     src2, dst2 = lt.src[:, None], lt.dst[:, None]
     sig2 = sig_l[:, None]
-    la2 = (lam * lt.weights)[:, None]
-    metrics_fn = make_metrics_fn(loss, reg, graph, data, lam, w_true)
     node_inv = lt.node_inv.long()
+    if isinstance(lam, (int, float)):
+        la2 = (lam * lt.weights)[:, None]
+        metrics_fn = make_metrics_fn(loss, reg, graph, data, lam, w_true)
+    else:
+        lams = lane_values(lam, graph.device)
+        la2 = (lams[:, None] * lt.weights)[..., None]
+        metrics_fn = lane_metrics([
+            make_metrics_fn(loss, reg, graph, data, float(v), w_true)
+            for v in lam])
 
     def metrics(w_l):
-        return metrics_fn(w_l[node_inv].to(torch.float32))
+        return metrics_fn(w_l[..., node_inv, :].to(torch.float32))
 
     return (params_s, pkeys, tau_l, tau_s, sig_l, sig2, src2, dst2, la2,
             metrics)
@@ -462,6 +514,7 @@ def _fused_run_iters(lt, inc_e, inc_s, params_s, pkeys, tau_s, src2, dst2,
     With ``compute_residual`` each call also returns the f32 eq.-11
     residual the kernel accumulated: ``(state, residual)``.  ``active`` is
     the tol solve's stop word (see ``kernels.ref.fused_pd_step_ref``).
+    Lane-stacked stores (a lambda path) advance every lane in each call.
     """
     bv, eb = lt.block_nodes, lt.block_edges
     kn, klo, khi = lt.kn, lt.klo, lt.khi
@@ -474,7 +527,8 @@ def _fused_run_iters(lt, inc_e, inc_s, params_s, pkeys, tau_s, src2, dst2,
             sig2, la2, loss=loss, reg=reg, pkeys=pkeys, block_nodes=bv,
             block_edges=eb, kn=kn, klo=klo, khi=khi, rho=rho, iters=iters,
             compute_residual=compute_residual, active=active,
-            out=(w_store[:nodes], u_store[klo * eb:klo * eb + edges]),
+            out=(w_store[..., :nodes, :],
+                 u_store[..., klo * eb:klo * eb + edges, :]),
             incidence=lt.compact)
         return (state, out[2]) if compute_residual else state
 
@@ -482,35 +536,42 @@ def _fused_run_iters(lt, inc_e, inc_s, params_s, pkeys, tau_s, src2, dst2,
 
 
 def _fused_stores(lt, w0_l, u0_l, dtype):
-    """The padded (w_store, u_store) of a solve in the storage dtype."""
-    eb, n = lt.block_edges, w0_l.shape[1]
+    """The padded (w_store, u_store) of a solve in the storage dtype; with
+    a leading lane axis, every lane's."""
+    eb, n = lt.block_edges, w0_l.shape[-1]
+    lead = tuple(w0_l.shape[:-2])
     zeros = u0_l.new_zeros
-    w_store0 = lt.pad_node_store(w0_l).to(dtype)
-    u_store0 = torch.cat([zeros((lt.klo * eb, n)), u0_l,
-                          zeros((lt.khi * eb, n))]).to(dtype)
+    w_store0 = torch.cat([w0_l, zeros(lead + ((lt.kn - 1) * lt.block_nodes,
+                                              n))], dim=-2).to(dtype)
+    u_store0 = torch.cat([zeros(lead + (lt.klo * eb, n)), u0_l,
+                          zeros(lead + (lt.khi * eb, n))], dim=-2).to(dtype)
     return w_store0, u_store0
 
 
 def _owned(lt, state):
-    """The owned rows (w_l, u_l) of the padded stores."""
+    """The owned rows (w_l, u_l) of the padded stores (of every lane)."""
     w_store, u_store = state
     lo = lt.klo * lt.block_edges
-    return w_store[:lt.nodes_pad], u_store[lo:lo + lt.edges_pad]
+    return (w_store[..., :lt.nodes_pad, :],
+            u_store[..., lo:lo + lt.edges_pad, :])
 
 
 def _fused_scan_impl(problem: Problem, w0_l, u0_l, w_true, *, layout,
                      num_iters: int, rho: float, metric_every: int,
                      record_residual: bool = False,
-                     dtype: torch.dtype = torch.float32):
+                     dtype: torch.dtype = torch.float32, lams=None):
     """The fused engine: loop the fused PD step over the edge-blocked
     layout, recording metrics on the cadence.  A single-block layout
     runs each metric block as one launch (``iters=metric_every``).
     ``dtype`` is the storage policy of the state and the prox
-    parameters.  Returns owned-layout ``(w_l, u_l, obj, mse, res)``, the
-    state in the storage dtype."""
+    parameters.  ``lams`` (host floats) runs a lambda path: the state
+    then carries a lane axis, every launch advances all lanes, and the
+    traces are (T, L).  Returns owned-layout ``(w_l, u_l, obj, mse,
+    res)``, the state in the storage dtype."""
     lt = layout
     (params_s, pkeys, tau_l, tau_s, sig_l, sig2, src2, dst2, la2,
-     metrics) = _fused_setup(problem.graph, problem.data, problem.lam,
+     metrics) = _fused_setup(problem.graph, problem.data,
+                             problem.lam if lams is None else lams,
                              w_true, loss=problem.loss,
                              reg=problem.regularizer, layout=lt, dtype=dtype)
 
@@ -531,10 +592,11 @@ def _fused_scan_impl(problem: Problem, w0_l, u0_l, w_true, *, layout,
             w_p, u_p = _owned(lt, prev)
             w_n, u_n = _owned(lt, new)
             return pd_residual(tau_l, sig_l, w_p.to(f32), u_p.to(f32),
-                               w_n.to(f32), u_n.to(f32))
+                               w_n.to(f32), u_n.to(f32),
+                               lanes=lams is not None)
 
     state, traces = scan_solve(
-        run_block, lambda s: metrics(s[0][:lt.nodes_pad]),
+        run_block, lambda s: metrics(s[0][..., :lt.nodes_pad, :]),
         _fused_stores(lt, w0_l, u0_l, dtype), num_iters=num_iters,
         metric_every=metric_every, multi_iter_block=(lt.num_blocks == 1),
         residual_fn=residual_fn)
@@ -587,43 +649,265 @@ def _fused_tol_impl(problem: Problem, w0_l, u0_l, w_true, *, layout,
 
 
 def _solve_fused(problem: Problem, config: SolverConfig, *, w0=None,
-                 u0=None, w_true=None) -> SolveResult:
-    """Solve via the fused PD kernel on the edge-blocked graph layout."""
+                 u0=None, w_true=None, lams=None) -> SolveResult:
+    """Solve via the fused PD kernel on the edge-blocked graph layout.
+
+    ``lams`` (host floats, fixed budget only) solves a lambda path in
+    one: every launch advances all lanes, each from the shared ``w0``
+    (V, n) and its own ``u0`` (L, E, n); the result's leaves then carry
+    the lane axis (the reference vmaps this function)."""
     _check_cadence(config)
     dtype = _storage_dtype(config, fused=True)
     lt = _graph_layout(problem.graph)
     n, dev = problem.num_features, problem.device
+    lead = () if lams is None else (len(lams),)
 
-    w0_l = torch.zeros((lt.nodes_pad, n), dtype=torch.float32, device=dev)
+    w0_l = torch.zeros(lead + (lt.nodes_pad, n), dtype=torch.float32,
+                       device=dev)
     if w0 is not None:
-        w0_l = gather_padded(torch.as_tensor(w0, dtype=torch.float32,
-                                             device=dev), lt.node_perm)
-    u0_l = torch.zeros((lt.edges_pad, n), dtype=torch.float32, device=dev)
+        w0_l[...] = gather_padded(torch.as_tensor(
+            w0, dtype=torch.float32, device=dev), lt.node_perm)
+    u0_l = torch.zeros(lead + (lt.edges_pad, n), dtype=torch.float32,
+                       device=dev)
     edge_pos = lt.edge_pos.long()
     if u0 is not None:
-        u0_l[edge_pos] = (torch.as_tensor(u0, dtype=torch.float32,
-                                          device=dev)
-                          * lt.edge_flip[:, None])
+        u0_l[..., edge_pos, :] = (torch.as_tensor(u0, dtype=torch.float32,
+                                                  device=dev)
+                                  * lt.edge_flip[:, None])
 
     run = dict(layout=lt, num_iters=config.num_iters, rho=config.rho,
                metric_every=config.metric_every, dtype=dtype)
     if config.tol is None or config.num_iters == 0:
         w_l, u_l, obj, mse, res = _fused_scan_impl(
             problem, w0_l, u0_l, w_true,
-            record_residual=config.record_residual, **run)
+            record_residual=config.record_residual, lams=lams, **run)
         iterations = config.num_iters
     else:
+        if lams is not None:
+            raise ValueError("a tol lambda path runs the masked sweep "
+                             "(api.solver._solve_path_masked)")
         w_l, u_l, traces, its = _fused_tol_impl(
             problem, w0_l, u0_l, w_true, tol=config.tol, **run)
         iterations, (obj, mse, res) = _fetch_stop(its, traces, config)
     f32 = torch.float32
-    w = w_l[lt.node_inv.long()].to(f32)
-    u = u_l[edge_pos].to(f32) * lt.edge_flip[:, None]
+    w = w_l[..., lt.node_inv.long(), :].to(f32)
+    u = u_l[..., edge_pos, :].to(f32) * lt.edge_flip[:, None]
+    if lams is not None:
+        return _lane_result(problem, lams, config, w, u, obj, mse, res,
+                            w_true)
     diag = _with_iterations(_diagnostics(problem, w, u, config), config,
                             iterations)
     return SolveResult(w=w, u=u, objective=obj,
                        mse=None if w_true is None else mse,
                        lam=problem.lam, diagnostics=diag, residual=res)
+
+
+def _lane_result(problem: Problem, lams, config: SolverConfig, w, u, obj,
+                 mse, res, w_true) -> SolveResult:
+    """A lambda path's result: leaves with a leading lane axis, traces
+    (L, T), the lambdas as a host tensor, per-lane certificates."""
+    diag = {}
+    if config.compute_diagnostics:
+        diag = _batched_certificate(
+            [problem.with_lam(float(v)) for v in lams], w, u)
+    return SolveResult(
+        w=w, u=u, objective=obj.T, mse=None if w_true is None else mse.T,
+        lam=torch.from_numpy(np.asarray(lams, np.float32)),
+        diagnostics=diag, residual=None if res is None else res.T)
+
+
+# ---------------------------------------------------------------------------
+# Lane-stacked dense engine: a lambda path, or a batch of problems
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class _Lanes:
+    """L problems that step together on the lane-stacked dense executor:
+    one per lambda of a path (one graph, data and prox parameters shared
+    by every lane) or a batch of shape-matched problems (each lane its
+    own graph, data and parameters).  ``lam`` is (L, 1); ``tau`` /
+    ``sigma`` broadcast against the (L, V, n) / (L, E, n) state;
+    ``metrics`` maps (L, V, n) to per-lane (L,) traces."""
+
+    executor: BatchedDenseExecutor
+    loss: Loss
+    reg: object
+    lam: torch.Tensor
+    tau: torch.Tensor
+    sigma: torch.Tensor
+    params: dict
+    metrics: Callable
+
+
+def _path_lanes(problem: Problem, lams, w_true, params=None) -> _Lanes:
+    """The lanes of a lambda path on ``problem`` (``lams`` host floats);
+    ``params`` the loss's prox parameters, set up once (shared)."""
+    graph, data = problem.graph, problem.data
+    if params is None:
+        params = problem.loss.prox_setup(data, graph.primal_stepsizes())
+    return _Lanes(
+        executor=BatchedDenseExecutor.shared(graph), loss=problem.loss,
+        reg=problem.regularizer,
+        lam=lane_values(lams, problem.device)[:, None],
+        tau=graph.primal_stepsizes(), sigma=graph.dual_stepsizes(),
+        params=params, metrics=lane_metrics([
+            make_metrics_fn(problem.loss, problem.regularizer, graph, data,
+                            float(v), w_true) for v in lams]))
+
+
+def _batched_setup_impl(problems: list) -> tuple:
+    """The stacked set-up of a batch of shape-matched problems: the
+    lane-stacked executor, data, stepsizes and prox parameters (one
+    ``prox_setup`` over the stacked data; the reference vmaps it)."""
+    graphs = [p.graph for p in problems]
+    data_b = NodeData(*(torch.stack([getattr(p.data, k) for p in problems])
+                        for k in ("x", "y", "sample_mask", "labeled_mask")))
+    tau_b = torch.stack([g.primal_stepsizes() for g in graphs])
+    sigma_b = torch.stack([g.dual_stepsizes() for g in graphs])
+    params_b = problems[0].loss.prox_setup(data_b, tau_b)
+    return BatchedDenseExecutor.stacked(graphs), tau_b, sigma_b, params_b
+
+
+def _many_lanes(problems: list) -> _Lanes:
+    """The lanes of ``solve_many``'s batch: one problem per lane."""
+    executor, tau_b, sigma_b, params_b = _batched_setup_impl(problems)
+    p0 = problems[0]
+    return _Lanes(
+        executor=executor, loss=p0.loss, reg=p0.regularizer,
+        lam=lane_values([p.lam for p in problems], p0.device)[:, None],
+        tau=tau_b[..., None], sigma=sigma_b[..., None], params=params_b,
+        metrics=lane_metrics([
+            make_metrics_fn(p.loss, p.regularizer, p.graph, p.data, p.lam,
+                            None) for p in problems]))
+
+
+def _lane_step(lanes: _Lanes, state, *, rho: float, clip_fn, affine_fn):
+    """One primal-dual step of every lane (the canonical engine step on
+    the lane-stacked executor, one lambda per lane)."""
+    w, u = state
+
+    def prox(v):
+        return lanes.loss.prox_apply(lanes.params, v, affine_fn=affine_fn)
+
+    return engine_pd_step(lanes.executor, prox, lanes.reg, lanes.lam,
+                          lanes.tau, lanes.sigma, w, u, rho=rho,
+                          clip_fn=clip_fn)
+
+
+def _lane_block_fn(lanes: _Lanes, *, rho: float, metric_every: int,
+                   clip_fn, affine_fn):
+    """``advance(state) -> (state, residual (L,))``: one metric block of
+    every lane, the residual its per-lane block max."""
+    def advance(state):
+        res = None
+        for _ in range(metric_every):
+            new = _lane_step(lanes, state, rho=rho, clip_fn=clip_fn,
+                             affine_fn=affine_fn)
+            r = pd_residual(lanes.tau, lanes.sigma, *state, *new,
+                            lanes=True)
+            res = r if res is None else torch.maximum(res, r)
+            state = new
+        return state, res
+
+    return advance
+
+
+def _batched_scan_impl(lanes: _Lanes, w0_b, u0_b, *, num_iters: int,
+                       rho: float, metric_every: int, clip_fn, affine_fn,
+                       record_residual: bool = False):
+    """The dense engine over lanes (the reference vmaps
+    ``_dense_scan_impl``): ``num_iters`` steps of every lane, metrics on
+    the cadence.  Returns ``(w, u, obj, mse, res)`` with (L, T) traces
+    (``res`` None unless recorded)."""
+    def run_block(state, iters):
+        del iters                      # dense blocks advance one step
+        return _lane_step(lanes, state, rho=rho, clip_fn=clip_fn,
+                          affine_fn=affine_fn)
+
+    residual_fn = None
+    if record_residual:
+        def residual_fn(prev, new):
+            return pd_residual(lanes.tau, lanes.sigma, *prev, *new,
+                               lanes=True)
+
+    (w, u), traces = scan_solve(
+        run_block, lambda s: lanes.metrics(s[0]), (w0_b, u0_b),
+        num_iters=num_iters, metric_every=metric_every,
+        residual_fn=residual_fn)
+    (obj, mse), res = traces if record_residual else (traces, None)
+    return w, u, obj.T, mse.T, None if res is None else res.T
+
+
+def _batched_tol_impl(lanes: _Lanes, w0_b, u0_b, tol: float, *,
+                      num_iters: int, rho: float, metric_every: int,
+                      clip_fn, affine_fn):
+    """The batched tol engine: :func:`device_loop` over metric blocks of
+    every lane, stopping when the *max* residual over the batch is <= tol
+    (batch-granular, as the reference: every problem runs the shared
+    iteration count, so each certificate holds on its own).  As on the
+    dense path, the blocks after the stop are computed and dropped
+    (``torch.where`` on the stop word).  Returns ``(w, u, traces (T, L)
+    each, iterations)`` with ``iterations`` on the device."""
+    advance = _lane_block_fn(lanes, rho=rho, metric_every=metric_every,
+                             clip_fn=clip_fn, affine_fn=affine_fn)
+
+    def run_block(state, active):
+        new, res = advance(state)
+        new = tuple(torch.where(active, n_, o_) for n_, o_ in zip(new, state))
+        obj, mse = lanes.metrics(new[0])
+        return new, (obj, mse, res), torch.max(res)
+
+    state, traces, its = device_loop(
+        run_block, (w0_b, u0_b), num_iters=num_iters,
+        metric_every=metric_every, tol=tol)
+    return state[0], state[1], traces, its
+
+
+def solve_dense_batched(problems: list, config: SolverConfig, w0_b, u0_b,
+                        *, clip_fn=None, affine_fn=None):
+    """Solve B shape-matched problems as one lane-stacked dense run (see
+    ``api.solver.solve_many`` for the checks and the front end).  With
+    ``tol`` set, stopping is batch-granular: the solve stops once the
+    max residual over the batch certifies, with one device->host fetch.
+
+    Returns ``(w, u, obj, mse, res, iterations)`` with leading batch axes
+    ((B, T) traces; ``res`` None unless tracked)."""
+    _check_cadence(config)
+    _storage_dtype(config, fused=False)
+    lanes = _many_lanes(problems)
+    run = dict(num_iters=config.num_iters, rho=config.rho,
+               metric_every=config.metric_every, clip_fn=clip_fn,
+               affine_fn=affine_fn)
+    if config.tol is None or config.num_iters == 0:
+        w, u, obj, mse, res = _batched_scan_impl(
+            lanes, w0_b, u0_b, record_residual=config.record_residual,
+            **run)
+        return w, u, obj, mse, res, config.num_iters
+    w, u, traces, its = _batched_tol_impl(lanes, w0_b, u0_b, config.tol,
+                                          **run)
+    iterations, (obj, mse, res) = _fetch_stop(its, traces, config)
+    return w, u, obj.T, mse.T, res.T, iterations
+
+
+def _solve_dense_path(problem: Problem, lams, config: SolverConfig, *,
+                      w0, u0_b, w_true=None, clip_fn=None,
+                      affine_fn=None) -> SolveResult:
+    """A fixed-budget lambda path on the dense engine (the reference
+    vmaps ``_solve_dense`` over the lambdas): every lane from the shared
+    ``w0`` (V, n) and its own ``u0_b`` (L, E, n), one step of all lanes
+    at a time; the kernel hooks take the lane axis in one launch."""
+    _check_cadence(config)
+    _storage_dtype(config, fused=False)
+    lanes = _path_lanes(problem, lams, w_true)
+    w0_b = torch.as_tensor(w0, dtype=torch.float32,
+                           device=problem.device).expand(
+        (len(lams),) + tuple(w0.shape)).clone()
+    w, u, obj, mse, res = _batched_scan_impl(
+        lanes, w0_b, u0_b, num_iters=config.num_iters, rho=config.rho,
+        metric_every=config.metric_every, clip_fn=clip_fn,
+        affine_fn=affine_fn, record_residual=config.record_residual)
+    return _lane_result(problem, lams, config, w, u, obj.T, mse.T,
+                        None if res is None else res.T, w_true)
 
 
 @register_backend("pallas")

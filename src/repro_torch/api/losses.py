@@ -17,9 +17,12 @@ Implemented losses (paper §4.1-4.3):
                                 solved by the unrolled small-n Cholesky.
 
 ``prox_apply`` takes any leading axes (``...``), so the same code runs on
-the dense (V, n) state and on the fused plain version's (B, NW, n)
-windows.  ``kernel_safe`` means the loss's prox runs inside the port's
-CUDA ``fused_pd_step``: all three registered losses do, as in the
+the dense (V, n) state, a lambda path's lane-stacked (L, V, n) state
+(parameters shared by every lane broadcast) and the fused plain
+version's (B, NW, n) windows.  ``prox_setup`` takes data stacked over a
+leading batch axis too (``solve_many``), giving (B, V, ...) leaves.
+``kernel_safe`` means the loss's prox runs inside the port's CUDA
+``fused_pd_step``: all three registered losses do, as in the
 reference, so each of them fuses on the card.
 """
 from __future__ import annotations
@@ -174,12 +177,12 @@ class SquaredLoss(Loss):
         per solve (the reference leaves it to XLA's ``jnp.linalg.inv``).
         """
         xm = data.x * data.sample_mask[..., None]
-        q = torch.einsum("vmn,vmk->vnk", xm, data.x)          # (V, n, n)
-        xty = torch.einsum("vmn,vm->vn", xm, data.y)          # (V, n)
-        c = (2.0 * tau / data.counts())[:, None]              # (V, 1)
+        q = torch.einsum("...vmn,...vmk->...vnk", xm, data.x)  # (V, n, n)
+        xty = torch.einsum("...vmn,...vm->...vn", xm, data.y)  # (V, n)
+        c = (2.0 * tau / data.counts())[..., None]             # (V, 1)
         n = data.num_features
         eye = torch.eye(n, dtype=data.x.dtype, device=data.x.device)
-        a = eye[None] + c[..., None] * q
+        a = eye + c[..., None] * q
         # inv_ex: the same inverse without the host-side check of its
         # info code, so set-up on the card never synchronizes
         p = torch.linalg.inv_ex(a).inverse
@@ -187,8 +190,8 @@ class SquaredLoss(Loss):
         lab = data.labeled_mask
         # row-major, as the batched_affine kernel reads it (the batched
         # inverse on CUDA comes back column-major per matrix)
-        p = torch.where(lab[:, None, None] > 0, p, eye[None]).contiguous()
-        b = torch.where(lab[:, None] > 0, b, torch.zeros_like(b))
+        p = torch.where(lab[..., None, None] > 0, p, eye).contiguous()
+        b = torch.where(lab[..., None] > 0, b, torch.zeros_like(b))
         return {"p": p, "b": b}
 
     def prox_apply(self, params, v, *, affine_fn=None):
@@ -226,17 +229,19 @@ class LassoLoss(Loss):
 
     def prox_setup(self, data, tau):
         xm = data.x * data.sample_mask[..., None]
-        q = torch.einsum("vmn,vmk->vnk", xm, data.x)
-        xty = torch.einsum("vmn,vm->vn", xm, data.y)
+        q = torch.einsum("...vmn,...vmk->...vnk", xm, data.x)
+        xty = torch.einsum("...vmn,...vm->...vn", xm, data.y)
         m = data.counts()
         # lambda_max via eigvalsh (set-up only; n is small), in batches
-        # of EIGVALSH_BATCH nodes
+        # of EIGVALSH_BATCH nodes over every problem of a stacked batch
+        n = q.shape[-1]
         lam_max = torch.cat([torch.linalg.eigvalsh(c)[:, -1]
-                             for c in q.split(EIGVALSH_BATCH)])
+                             for c in q.reshape(-1, n, n).split(
+                                 EIGVALSH_BATCH)]).reshape(q.shape[:-2])
         lips = 2.0 * lam_max / m + 1.0 / tau                  # (V,)
-        return {"q": q, "xty": xty, "m": m[:, None],
-                "step": (1.0 / lips)[:, None], "tau": tau[:, None],
-                "labeled": data.labeled_mask[:, None]}
+        return {"q": q, "xty": xty, "m": m[..., None],
+                "step": (1.0 / lips)[..., None], "tau": tau[..., None],
+                "labeled": data.labeled_mask[..., None]}
 
     def prox_apply(self, params, v, *, affine_fn=None):
         del affine_fn                       # iterative inner solver
@@ -281,8 +286,8 @@ class LogisticLoss(Loss):
 
     def prox_setup(self, data, tau):
         return {"x": data.x, "y": data.y, "mask": data.sample_mask,
-                "m": data.counts()[:, None], "tau": tau[:, None],
-                "labeled": data.labeled_mask[:, None]}
+                "m": data.counts()[..., None], "tau": tau[..., None],
+                "labeled": data.labeled_mask[..., None]}
 
     def prox_apply(self, params, v, *, affine_fn=None):
         del affine_fn                       # iterative inner solver

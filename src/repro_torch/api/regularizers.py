@@ -5,6 +5,11 @@ The paper couples local models with the TV seminorm lambda * ||w||_TV
 A :class:`Regularizer` supplies the three pieces Algorithm 1 needs:
 ``value``, ``dual_prox`` (the resolvent of sigma * dg*, step 10) and
 ``project_dual`` — the interface of ``repro.api.regularizers``.
+
+``dual_prox`` and ``project_dual`` also take lane-stacked duals u (L, E,
+n) with one lambda per lane, ``lam`` an (L, 1) tensor, against shared
+weights (E,) or per-lane weights (L, E): a lambda path or a batch of
+problems (the reference vmaps them).
 """
 from __future__ import annotations
 
@@ -44,13 +49,19 @@ def get_regularizer(spec, **kwargs) -> "Regularizer":
         f"regularizer must be a Regularizer or a registry name, got {spec!r}")
 
 
+def _edge_col(level: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Per-edge levels (..., E) as a column against ``u`` (..., E, n);
+    levels that already carry the column pass through."""
+    return level[..., None] if level.ndim < u.ndim else level
+
+
 def _clip(u: torch.Tensor, bound: torch.Tensor,
           clip_fn: Callable | None = None) -> torch.Tensor:
     """Edge-wise clip to +-bound (``jnp.clip(u, -b, b)``); ``clip_fn(u,
     bound)`` routes it through a kernel (``kernels.ops.tv_prox``)."""
     if clip_fn is not None:
         return clip_fn(u, bound)
-    b = _col(bound)
+    b = _edge_col(bound, u)
     return torch.minimum(torch.maximum(u, -b), b)
 
 
@@ -131,5 +142,5 @@ class SquaredTV(Regularizer):
 
     def dual_prox(self, u, graph, lam, sigma, *, clip_fn=None):
         del clip_fn                         # a scaling, not a clip
-        la = _col(lam * graph.weights)
+        la = _edge_col(lam * graph.weights, u)
         return u * (la / (la + _col(sigma)))

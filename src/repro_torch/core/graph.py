@@ -253,6 +253,33 @@ class EmpiricalGraph:
                           device=self.device)
 
 
+def batched_incidence_apply(src: torch.Tensor, dst: torch.Tensor,
+                            w: torch.Tensor) -> torch.Tensor:
+    """D over lanes: (L, V, n) node signals -> (L, E, n) edge signals,
+    with ``src`` / ``dst`` (E,) shared by every lane (a lambda path) or
+    (L, E) per lane (a batch of graphs of one shape).  Lane l is
+    :meth:`EmpiricalGraph.incidence_apply` of lane l's graph."""
+    if src.ndim == 1:
+        return w[:, src] - w[:, dst]
+    lane = torch.arange(w.shape[0], device=w.device)[:, None]
+    return w[lane, src] - w[lane, dst]
+
+
+def batched_incidence_transpose_apply(inc_edges: torch.Tensor,
+                                      inc_signs: torch.Tensor,
+                                      u: torch.Tensor) -> torch.Tensor:
+    """D^T over lanes: (L, E, n) edge signals -> (L, V, n) node signals,
+    with the padded incidence tables (V, max_deg) shared by every lane or
+    (L, V, max_deg) per lane.  Lane l is
+    :meth:`EmpiricalGraph.incidence_transpose_apply` of lane l's graph."""
+    if inc_edges.ndim == 2:
+        gathered = u[:, inc_edges]                  # (L, V, max_deg, n)
+        return torch.einsum("vd,lvdn->lvn", inc_signs, gathered)
+    lane = torch.arange(u.shape[0], device=u.device)[:, None, None]
+    gathered = u[lane, inc_edges]
+    return torch.einsum("lvd,lvdn->lvn", inc_signs, gathered)
+
+
 def build_graph(edges: np.ndarray, weights: np.ndarray, num_nodes: int,
                 device=None) -> EmpiricalGraph:
     """Build an EmpiricalGraph from an (E, 2) integer edge list.

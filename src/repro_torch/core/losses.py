@@ -3,7 +3,8 @@
 The loss numerics live in :mod:`repro_torch.api.losses`.  All node-local
 data is stored batched over nodes with padding: X: (V, m_max, n),
 y: (V, m_max), sample_mask: (V, m_max).  Unlabeled nodes (i not in M)
-have an identity primal update — implemented by masking.
+have an identity primal update — implemented by masking.  A batch of
+problems (``api.solver.solve_many``) stacks them over a leading axis.
 """
 from __future__ import annotations
 
@@ -32,11 +33,11 @@ class NodeData:
 
     @property
     def num_nodes(self) -> int:
-        return self.x.shape[0]
+        return self.x.shape[-3]
 
     @property
     def num_features(self) -> int:
-        return self.x.shape[2]
+        return self.x.shape[-1]
 
     @property
     def device(self) -> torch.device:
@@ -49,5 +50,6 @@ class NodeData:
             self.x, self.y, self.sample_mask, self.labeled_mask)))
 
     def counts(self) -> torch.Tensor:
-        """(V,) effective m_i (>= 1 to avoid 0-division on empty nodes)."""
-        return torch.clamp(torch.sum(self.sample_mask, dim=1), min=1.0)
+        """(V,) effective m_i (>= 1 to avoid 0-division on empty nodes);
+        (B, V) for stacked data."""
+        return torch.clamp(torch.sum(self.sample_mask, dim=-1), min=1.0)

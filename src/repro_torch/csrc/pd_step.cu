@@ -19,8 +19,9 @@ cudaError_t pd_launch_squared(const PdArgs& a, cudaStream_t s) {
 
 }  // namespace repro_pd
 
-// One launch of the fused step described by *args on `stream`; returns a
-// CUDA error code (0 on success).  n must be 1..16.
+// One launch of the fused step described by *args on `stream`, over its
+// num_lanes lanes; returns a CUDA error code (0 on success).  n must be
+// 1..16.
 extern "C" int fused_pd_step_launch(const repro_pd::PdArgs* args,
                                     void* stream) {
   using namespace repro_pd;

@@ -32,7 +32,7 @@ struct PdArgs {
   float* w_carry;          // f32 (num_nodes, n) carry of iters > 1
   float* u_carry;          // f32 (num_edges, n)
   float* z;                // f32 (num_nodes, n) scratch: 2 w+ - w
-  float* res;              // (1,) residual, zeroed by the caller
+  float* res;              // (num_lanes,) residuals, zeroed by the caller
   const unsigned char* active;  // null, or the stop word: 0 = write nothing
   long long num_nodes;     // nb * BV
   long long num_edges;     // nb * EB
@@ -50,6 +50,19 @@ struct PdArgs {
   int num_samples;         // logistic: samples per node (x.shape[1])
   int num_inner;           // lasso / logistic inner iterations
   float alpha;             // lasso l1 weight
+  // the lane axis: num_lanes problems on one layout with the same prox
+  // parameters, tau and sigma (a lambda path), each with its own state,
+  // la, outputs, carry, z and residual slot.  Lane l of an array starts
+  // l times its lane stride (in elements) past its pointer; z's stride is
+  // num_nodes * n and res holds num_lanes floats.
+  long long num_lanes;
+  long long w_in_lane;
+  long long u_in_lane;
+  long long w_out_lane;
+  long long u_out_lane;
+  long long wc_lane;       // w_carry
+  long long uc_lane;       // u_carry
+  long long la_lane;
 };
 
 // One per loss, each defined in its own translation unit.

@@ -75,6 +75,21 @@
 //     when n equals the register tile and every row pointer is 16-byte
 //     aligned; otherwise element by element.
 //   * Edge phase: one thread per owned edge, grid-stride.
+//   * Lanes (num_lanes > 1: a lambda path, the grid axis jax.vmap adds to
+//     the reference kernel).  L problems share the layout, the prox
+//     parameters, tau and sigma; each has its own w, u, la, outputs,
+//     carry, z and residual slot.  One cooperative launch covers them all,
+//     the lanes as more work of the same grid (a cooperative grid is
+//     capped by residency, so more blocks would not launch): each node
+//     tile's slots, parameters and in-edge ids are staged once and serve
+//     every lane in turn, and the edge phase reads an edge's columns once
+//     and updates it in every lane.  The lane loop stays outside the
+//     per-node register tile, so registers do not grow with L; the tile
+//     and the gather's lanes do not depend on L, so lane l sums in the
+//     order a one-lane launch on its inputs does (bit-identical).  Each
+//     lane's residual is a warp max into a shared slot, then one
+//     atomicMax per lane and block.  One lane runs the single-problem
+//     instantiation (MULTI false), unchanged.
 //
 // Stop word.  A tolerance solve enqueues every block of its budget and
 // keeps a device flag (`active`) that it clears once a block's residual
@@ -142,6 +157,11 @@ struct Plan {
   int elems[6];      // elements per node of each prox parameter
   int stride[6];     // shared floats per node of each (elems | 1)
   int offset[6];     // shared float offset of each
+  // lanes > 1 only (0 otherwise): a tile's in-edge ids staged once for
+  // every lane (up to ids_cap of them), and the lanes' residual maxima
+  int ids_cap;
+  int ids_offset;    // shared float offset of the staged ids
+  int res_offset;    // shared float offset of num_lanes residual maxima
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -311,23 +331,25 @@ __device__ __forceinline__ void stage_tile(const PdArgs& a, const Plan& p,
 // This lane's share of D^T u for the node with staged slots m (lane of
 // `lanes`): slots lane, lane + lanes, ... of its in-edges (-1) then its
 // out run (+1), summed in that order; kUnroll slots per round, all loads
-// issued first.
+// issued first.  In-edge slot j is ids[j - ids_base]: the compact table
+// itself (ids_base 0), or the tile's ids staged in shared memory.
 template <int MAXN, typename U>
-__device__ __forceinline__ void gather_share(const PdArgs& a, const U* u,
+__device__ __forceinline__ void gather_share(const PdArgs& a, const int* ids,
+                                             int ids_base, const U* u,
                                              long long u_rows, bool vec,
                                              int4 m, int lane, int lanes,
                                              float (&acc)[MAXN]) {
   const int n = a.n;
 #pragma unroll
   for (int k = 0; k < MAXN; ++k) acc[k] = 0.0f;
-  const int p0 = m.x, nin = m.y, first = m.z;
+  const int p0 = m.x - ids_base, nin = m.y, first = m.z;
   const int deg = nin + m.w;
   for (int s0 = lane; s0 < deg; s0 += kUnroll * lanes) {
     int e[kUnroll];
 #pragma unroll
     for (int q = 0; q < kUnroll; ++q) {
       const int s = s0 + q * lanes;
-      const int id = s < nin ? a.in_ids[p0 + s] : first + (s - nin);
+      const int id = s < nin ? ids[p0 + s] : first + (s - nin);
       e[q] = id < 0 ? 0 : (id >= u_rows ? (int)(u_rows - 1) : id);
     }
     float r[kUnroll][MAXN];
@@ -498,22 +520,136 @@ __device__ __forceinline__ void prox(const PdArgs& a,
   }
 }
 
+// The node update of node i (thread t of its tile) after the tile's D^T u
+// is in shared memory: v = w - tau D^T u, the prox, z = 2 w+ - w and the
+// KM step, written to the carry or the outputs.  Returns the node's
+// residual term (0 without compute_residual).  Pointers are the lane's.
+template <int MAXN, int LOSS, typename T>
+__device__ __forceinline__ float node_update(
+    const PdArgs& a, const Plan& p, const float* smem, bool vec,
+    bool in_carry, bool out_carry, bool rounded_residual, long long i,
+    int t, const T* w_in, float* w_carry, float* z, T* w_out) {
+  const int n = a.n;
+  float w[MAXN], v[MAXN], wp[MAXN], zr[MAXN], wn[MAXN];
+  if (in_carry)
+    load_row<MAXN>(w_carry + i * n, n, vec, w);
+  else
+    load_row<MAXN>(w_in + i * n, n, vec, w);
+  const float tt = a.tau[i];
+#pragma unroll
+  for (int k = 0; k < MAXN; ++k)
+    v[k] = k < n ? w[k] - tt * smem[p.doffset + t * p.dstride + k] : 0.0f;
+  const float* sp[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) sp[k] = smem + p.offset[k] + t * p.stride[k];
+  prox<MAXN, LOSS>(a, sp, v, wp);
+#pragma unroll
+  for (int j = 0; j < MAXN; ++j) {
+    zr[j] = 2.0f * wp[j] - w[j];
+    wn[j] = a.relax ? w[j] + a.rho * (wp[j] - w[j]) : wp[j];
+  }
+  store_row<MAXN>(z + i * n, n, vec, zr);
+  if (out_carry) {
+    store_row<MAXN>(w_carry + i * n, n, vec, wn);
+  } else {
+    store_row<MAXN>(w_out + i * n, n, vec, wn);
+    if (rounded_residual) {
+#pragma unroll
+      for (int j = 0; j < MAXN; ++j) wn[j] = rounded<T>(wn[j]);
+    }
+  }
+  float r = 0.0f;
+  if (a.compute_residual) {
+#pragma unroll
+    for (int j = 0; j < MAXN; ++j)
+      if (j < n) r = fmaxf(r, fabsf(wn[j] - w[j]) / tt);
+  }
+  return r;
+}
+
+// The edge update of owned edge e (src s, dst d, dual step sg, level l):
+// D(2w+ - w), the dual resolvent and the KM step, written to the carry or
+// the outputs.  Returns the edge's residual term.  Pointers are the lane's.
+template <int MAXN, typename T>
+__device__ __forceinline__ float edge_update(
+    const PdArgs& a, bool vec, bool in_carry, bool out_carry,
+    bool rounded_residual, long long u_off, long long e, long long s,
+    long long d, float sg, float l, const T* u_in, float* u_carry,
+    const float* z, T* u_out) {
+  const int n = a.n;
+  const float scale = l / (l + sg);
+  float u0[MAXN], zs[MAXN], zd[MAXN], y[MAXN];
+  if (in_carry)
+    load_row<MAXN>(u_carry + e * n, n, vec, u0);
+  else
+    load_row<MAXN>(u_in + (u_off + e) * n, n, vec, u0);
+  load_row<MAXN>(z + s * n, n, vec, zs);
+  load_row<MAXN>(z + d * n, n, vec, zd);
+#pragma unroll
+  for (int k = 0; k < MAXN; ++k) {
+    const float x = u0[k] + sg * (zs[k] - zd[k]);
+    const float up = a.reg_kind == 0 ? clip(x, l) : x * scale;
+    float yk = up;
+    if (a.relax) {
+      yk = u0[k] + a.rho * (up - u0[k]);
+      if (a.reg_kind == 0) yk = clip(yk, l);
+    }
+    y[k] = yk;
+  }
+  if (out_carry) {
+    store_row<MAXN>(u_carry + e * n, n, vec, y);
+  } else {
+    store_row<MAXN>(u_out + e * n, n, vec, y);
+    if (rounded_residual) {
+#pragma unroll
+      for (int k = 0; k < MAXN; ++k) y[k] = rounded<T>(y[k]);
+    }
+  }
+  float r = 0.0f;
+  if (a.compute_residual) {
+#pragma unroll
+    for (int k = 0; k < MAXN; ++k)
+      if (k < n) r = fmaxf(r, fabsf(y[k] - u0[k]) / sg);
+  }
+  return r;
+}
+
+// The warp's max of r into the shared slot (every lane of the warp calls
+// it; non-negative floats order like their bit patterns).
+__device__ __forceinline__ void warp_max_into(float r, float* slot) {
+  for (int off = 16; off > 0; off >>= 1)
+    r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, off));
+  if ((threadIdx.x & 31) == 0)
+    atomicMax(reinterpret_cast<int*>(slot), __float_as_int(r));
+}
+
 // Resident blocks per SM the register budget must allow.  The squared
 // loss's node phase is latency-bound gathers, which occupancy hides (5
 // blocks: 48 registers at n <= 2); the lasso's and logistic's proxes
-// spill under such a cap and lose more than the gathers gain.
-template <int MAXN, int LOSS> constexpr int min_blocks() {
-  return LOSS != kSquared ? 1 : (MAXN <= 2 ? 5 : (MAXN <= 4 ? 4 : 1));
+// spill under such a cap and lose more than the gathers gain.  The lane
+// loop needs a few registers more (its lane offsets): for the squared
+// loss one block fewer, as spilling in the lane loop costs more than the
+// block (measured at 1M, PERF.md); the lasso's lane kernel at n <= 4
+// lands just past 3 blocks' registers (88), and the cap that restores
+// the third block pays off (PERF.md).
+template <int MAXN, int LOSS, bool MULTI> constexpr int min_blocks() {
+  if (LOSS == kSquared)
+    return MAXN <= 2 ? 5 - MULTI : (MAXN <= 4 ? 4 - MULTI : 1);
+  return LOSS == kLasso && MULTI && MAXN <= 4 ? 3 : 1;
 }
 
-template <int MAXN, int LOSS, typename T>
-__global__ void __launch_bounds__(kThreads, min_blocks<MAXN, LOSS>())
+// MULTI: a launch over num_lanes > 1 lanes.  The one-lane instantiation
+// (MULTI false) is the kernel of a single problem: its lane loops run once
+// with every lane offset 0, and its residual is one register max.
+template <int MAXN, int LOSS, typename T, bool MULTI>
+__global__ void __launch_bounds__(kThreads, min_blocks<MAXN, LOSS, MULTI>())
 fused_pd_step_kernel(PdArgs a, Plan p) {
   // the stop word: a stopped tol solve writes nothing (uniform: every
   // thread returns before the first grid sync)
   if (a.active != nullptr && *a.active == 0) return;
   cg::grid_group grid = cg::this_grid();
-  // the tile: node slots, D^T u, then the staged parameters
+  // the tile: node slots, D^T u, the staged parameters, then (lanes > 1)
+  // the staged in-edge ids and the lanes' residual maxima
   extern __shared__ __align__(16) float smem[];
   const int n = a.n;
   const bool vec = p.vec != 0;
@@ -526,6 +662,14 @@ fused_pd_step_kernel(PdArgs a, Plan p) {
   const bool rounded_residual = a.iters == 1;
   const int lanes = p.lanes, lane = threadIdx.x & (lanes - 1);
   const int groups = kThreads / lanes;
+  const int num_lanes = MULTI ? (int)a.num_lanes : 1;
+  const long long z_lane = a.num_nodes * n;
+  float* lane_res = smem + p.res_offset;
+  if constexpr (MULTI) {
+    // read only after a __syncthreads or grid sync below
+    for (int l = threadIdx.x; l < num_lanes; l += kThreads)
+      lane_res[l] = 0.0f;
+  }
   float rmax = 0.0f;
 
   for (int it = 0; it < a.iters; ++it) {
@@ -541,125 +685,123 @@ fused_pd_step_kernel(PdArgs a, Plan p) {
       const long long left = a.num_nodes - node0;
       const int cnt = left < p.tile ? (int)left : p.tile;
       stage_tile<T>(a, p, smem, node0, cnt);
-      __syncthreads();
-      // warp-uniform trip count: p.tile is a multiple of a warp's groups;
-      // two nodes' gathers in flight per group
-#pragma unroll 2
-      for (int q = threadIdx.x / lanes; q < p.tile; q += groups) {
-        const int4 m = reinterpret_cast<const int4*>(smem)[q];
-        float acc[MAXN];
-        if (in_carry)
-          gather_share<MAXN>(a, a.u_carry, u_rows, vec, m, lane, lanes,
-                             acc);
-        else
-          gather_share<MAXN>(a, u_store, u_rows, vec, m, lane, lanes, acc);
-        for (int off = lanes >> 1; off > 0; off >>= 1) {
-#pragma unroll
-          for (int k = 0; k < MAXN; ++k)
-            if (k < n) acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
-        }
-        if (lane == 0 && q < cnt) {
-#pragma unroll
-          for (int k = 0; k < MAXN; ++k)
-            if (k < n) smem[p.doffset + q * p.dstride + k] = acc[k];
+      const int* ids = a.in_ids;
+      int ids_base = 0;
+      if constexpr (MULTI) {
+        // the tile's in-edge ids once for every lane, when they fit
+        const int first = a.in_ptr[node0];
+        const int count = a.in_ptr[node0 + cnt] - first;
+        if (count <= p.ids_cap) {
+          int* staged = reinterpret_cast<int*>(smem + p.ids_offset);
+          for (int j = threadIdx.x; j < count; j += kThreads)
+            staged[j] = a.in_ids[first + j];
+          ids = staged;
+          ids_base = first;
         }
       }
       __syncthreads();
-      const int t = threadIdx.x;
-      if (t < cnt) {
-        const long long i = node0 + t;
-        float w[MAXN], v[MAXN], wp[MAXN], zr[MAXN], wn[MAXN];
-        if (in_carry)
-          load_row<MAXN>(a.w_carry + i * n, n, vec, w);
-        else
-          load_row<MAXN>(w_store + i * n, n, vec, w);
-        const float tt = a.tau[i];
+      // the staged slots, ids and parameters serve every lane in turn
+      for (int l = 0; l < num_lanes; ++l) {
+        const T* u_l = u_store + l * a.u_in_lane;
+        float* uc_l = a.u_carry + l * a.uc_lane;
+        // warp-uniform trip count: p.tile is a multiple of a warp's
+        // groups; two nodes' gathers in flight per group
+#pragma unroll 2
+        for (int q = threadIdx.x / lanes; q < p.tile; q += groups) {
+          const int4 m = reinterpret_cast<const int4*>(smem)[q];
+          float acc[MAXN];
+          if (in_carry)
+            gather_share<MAXN>(a, ids, ids_base, uc_l, u_rows, vec, m,
+                               lane, lanes, acc);
+          else
+            gather_share<MAXN>(a, ids, ids_base, u_l, u_rows, vec, m, lane,
+                               lanes, acc);
+          for (int off = lanes >> 1; off > 0; off >>= 1) {
 #pragma unroll
-        for (int k = 0; k < MAXN; ++k)
-          v[k] = k < n ? w[k] - tt * smem[p.doffset + t * p.dstride + k]
-                       : 0.0f;
-        const float* sp[6];
+            for (int k = 0; k < MAXN; ++k)
+              if (k < n) acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
+          }
+          if (lane == 0 && q < cnt) {
 #pragma unroll
-        for (int k = 0; k < 6; ++k)
-          sp[k] = smem + p.offset[k] + t * p.stride[k];
-        prox<MAXN, LOSS>(a, sp, v, wp);
-#pragma unroll
-        for (int j = 0; j < MAXN; ++j) {
-          zr[j] = 2.0f * wp[j] - w[j];
-          wn[j] = a.relax ? w[j] + a.rho * (wp[j] - w[j]) : wp[j];
-        }
-        store_row<MAXN>(a.z + i * n, n, vec, zr);
-        if (out_carry) {
-          store_row<MAXN>(a.w_carry + i * n, n, vec, wn);
-        } else {
-          store_row<MAXN>(w_out + i * n, n, vec, wn);
-          if (rounded_residual) {
-#pragma unroll
-            for (int j = 0; j < MAXN; ++j) wn[j] = rounded<T>(wn[j]);
+            for (int k = 0; k < MAXN; ++k)
+              if (k < n) smem[p.doffset + q * p.dstride + k] = acc[k];
           }
         }
-        if (a.compute_residual) {
-#pragma unroll
-          for (int j = 0; j < MAXN; ++j)
-            if (j < n) rmax = fmaxf(rmax, fabsf(wn[j] - w[j]) / tt);
+        __syncthreads();
+        const int t = threadIdx.x;
+        float r = 0.0f;
+        if (t < cnt)
+          r = node_update<MAXN, LOSS, T>(
+              a, p, smem, vec, in_carry, out_carry, rounded_residual,
+              node0 + t, t, w_store + l * a.w_in_lane,
+              a.w_carry + l * a.wc_lane, a.z + l * z_lane,
+              w_out + l * a.w_out_lane);
+        if constexpr (MULTI) {
+          if (a.compute_residual) warp_max_into(r, lane_res + l);
+        } else {
+          rmax = fmaxf(rmax, r);
         }
+        __syncthreads();  // the next lane or tile overwrites shared memory
       }
-      __syncthreads();  // the next tile overwrites shared memory
     }
     grid.sync();
 
     // ---- edge phase: D(2w+ - w), dual resolvent, KM -------------------
-    for (long long e = tid0; e < a.num_edges; e += stride) {
-      const long long s = a.src[e], d = a.dst[e];
-      const float sg = a.sigma[e], l = a.la[e];
-      const float scale = l / (l + sg);
-      float u0[MAXN], zs[MAXN], zd[MAXN], y[MAXN];
-      if (in_carry)
-        load_row<MAXN>(a.u_carry + e * n, n, vec, u0);
-      else
-        load_row<MAXN>(u_store + (u_off + e) * n, n, vec, u0);
-      load_row<MAXN>(a.z + s * n, n, vec, zs);
-      load_row<MAXN>(a.z + d * n, n, vec, zd);
-#pragma unroll
-      for (int k = 0; k < MAXN; ++k) {
-        const float x = u0[k] + sg * (zs[k] - zd[k]);
-        const float up = a.reg_kind == 0 ? clip(x, l) : x * scale;
-        float yk = up;
-        if (a.relax) {
-          yk = u0[k] + a.rho * (up - u0[k]);
-          if (a.reg_kind == 0) yk = clip(yk, l);
+    if constexpr (MULTI) {
+      // the edge's columns once for every lane; a warp-uniform trip
+      // count, since every lane's residual is a warp max
+      for (long long e0 = (long long)blockIdx.x * blockDim.x;
+           e0 < a.num_edges; e0 += stride) {
+        const long long e = e0 + threadIdx.x;
+        const bool live = e < a.num_edges;
+        long long s = 0, d = 0;
+        float sg = 1.0f;
+        if (live) {
+          s = a.src[e];
+          d = a.dst[e];
+          sg = a.sigma[e];
         }
-        y[k] = yk;
-      }
-      if (out_carry) {
-        store_row<MAXN>(a.u_carry + e * n, n, vec, y);
-      } else {
-        store_row<MAXN>(u_out + e * n, n, vec, y);
-        if (rounded_residual) {
-#pragma unroll
-          for (int k = 0; k < MAXN; ++k) y[k] = rounded<T>(y[k]);
+        for (int l = 0; l < num_lanes; ++l) {
+          float r = 0.0f;
+          if (live)
+            r = edge_update<MAXN, T>(
+                a, vec, in_carry, out_carry, rounded_residual, u_off, e, s,
+                d, sg, a.la[l * a.la_lane + e], u_store + l * a.u_in_lane,
+                a.u_carry + l * a.uc_lane, a.z + l * z_lane,
+                u_out + l * a.u_out_lane);
+          if (a.compute_residual) warp_max_into(r, lane_res + l);
         }
       }
-      if (a.compute_residual) {
-#pragma unroll
-        for (int k = 0; k < MAXN; ++k)
-          if (k < n) rmax = fmaxf(rmax, fabsf(y[k] - u0[k]) / sg);
+    } else {
+      for (long long e = tid0; e < a.num_edges; e += stride) {
+        const float r = edge_update<MAXN, T>(
+            a, vec, in_carry, out_carry, rounded_residual, u_off, e,
+            a.src[e], a.dst[e], a.sigma[e], a.la[e], u_store, a.u_carry,
+            a.z, u_out);
+        rmax = fmaxf(rmax, r);
       }
     }
     if (it + 1 < a.iters) grid.sync();
   }
 
   if (a.compute_residual) {
-    for (int off = 16; off > 0; off >>= 1)
-      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
-    __shared__ float warp_max[kWarps];
-    const int wl = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    if (wl == 0) warp_max[warp] = rmax;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      float m = 0.0f;
-      for (int k = 0; k < kWarps; ++k) m = fmaxf(m, warp_max[k]);
-      atomicMax(reinterpret_cast<int*>(a.res), __float_as_int(m));
+    if constexpr (MULTI) {
+      __syncthreads();
+      for (int l = threadIdx.x; l < num_lanes; l += kThreads)
+        atomicMax(reinterpret_cast<int*>(a.res + l),
+                  __float_as_int(lane_res[l]));
+    } else {
+      for (int off = 16; off > 0; off >>= 1)
+        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
+      __shared__ float warp_max[kWarps];
+      const int wl = threadIdx.x & 31, warp = threadIdx.x >> 5;
+      if (wl == 0) warp_max[warp] = rmax;
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        float m = 0.0f;
+        for (int k = 0; k < kWarps; ++k) m = fmaxf(m, warp_max[k]);
+        atomicMax(reinterpret_cast<int*>(a.res), __float_as_int(m));
+      }
     }
   }
 }
@@ -699,9 +841,14 @@ inline long long stage_layout(int loss, int n, int ms, Plan& p) {
 }
 
 // The launch plan of one loss at register tile MAXN: staged parameter
-// shapes, tile, lanes, vector rows.  Returns the shared bytes, or -1
-// when one node's parameters do not fit a block's shared memory.
-template <int MAXN, int LOSS>
+// shapes, tile, lanes, vector rows, and for a launch over lanes (MULTI)
+// the staged in-edge ids and the lanes' residual maxima.  The tile and
+// the gather's lanes come from the staged parameters and the mean degree
+// alone, never from the lane count, so each lane of a launch over lanes
+// sums in the order a one-lane launch does.  Returns the shared bytes, or
+// -1 when one node's parameters (or the lanes' slots) do not fit a
+// block's shared memory.
+template <int MAXN, int LOSS, bool MULTI>
 long long make_plan(const PdArgs& a, Plan& p) {
   const long long node_bytes = stage_layout(LOSS, a.n, a.num_samples, p);
   if (node_bytes > kSmemMax) return -1;
@@ -725,15 +872,38 @@ long long make_plan(const PdArgs& a, Plan& p) {
   p.vec = a.n == MAXN && aligned16(a.w_in) && aligned16(a.u_in) &&
           aligned16(a.w_out) && aligned16(a.u_out) &&
           aligned16(a.w_carry) && aligned16(a.u_carry) && aligned16(a.z);
+  if (MULTI) {
+    // every lane's rows aligned too (z's lane is num_nodes rows)
+    const long long ts = a.storage == kBF16 ? 2 : 4;
+    const long long strides[] = {a.w_in_lane * ts, a.u_in_lane * ts,
+                                 a.w_out_lane * ts, a.u_out_lane * ts,
+                                 a.wc_lane * 4, a.uc_lane * 4,
+                                 a.num_nodes * a.n * 4};
+    for (long long b : strides) p.vec = p.vec && b % 16 == 0;
+    p.res_offset = (int)off;
+    off += a.num_lanes;
+    // a tile's in-edge ids: up to twice the mean in-degree a node, in
+    // what is left of the staging target (a tile past it reads the ids
+    // from device memory, as a one-lane launch does)
+    p.ids_offset = (int)off;
+    const double mean_in =
+        a.num_nodes > 0 ? (double)a.num_in / (double)a.num_nodes : 0.0;
+    long long cap = (long long)(p.tile * (2.0 * mean_in + 4.0));
+    const long long room = kSmemTarget / 4 - off;
+    if (cap > room) cap = room > 0 ? room : 0;
+    p.ids_cap = (int)cap;
+    off += cap;
+    if (off * 4 > kSmemMax) return -1;
+  }
   return off * 4;
 }
 
-template <int MAXN, int LOSS, typename T>
+template <int MAXN, int LOSS, typename T, bool MULTI>
 cudaError_t launch(const PdArgs& args, cudaStream_t stream) {
   Plan plan;
-  const long long smem = make_plan<MAXN, LOSS>(args, plan);
+  const long long smem = make_plan<MAXN, LOSS, MULTI>(args, plan);
   if (smem < 0) return cudaErrorInvalidValue;
-  auto kernel = fused_pd_step_kernel<MAXN, LOSS, T>;
+  auto kernel = fused_pd_step_kernel<MAXN, LOSS, T, MULTI>;
   cudaError_t err;
   if (smem > kSmemDefault) {  // opt in past the default per-block limit
     err = cudaFuncSetAttribute(kernel,
@@ -766,20 +936,27 @@ cudaError_t launch(const PdArgs& args, cudaStream_t stream) {
 }
 
 // The register tile and storage type of one loss's launch.
-template <int LOSS, typename T>
+template <int LOSS, typename T, bool MULTI>
 cudaError_t launch_width(const PdArgs& a, cudaStream_t s) {
-  if (a.n <= 2) return launch<2, LOSS, T>(a, s);
-  if (a.n <= 4) return launch<4, LOSS, T>(a, s);
-  if (a.n <= 8) return launch<8, LOSS, T>(a, s);
-  if (a.n <= 16) return launch<16, LOSS, T>(a, s);
+  if (a.n <= 2) return launch<2, LOSS, T, MULTI>(a, s);
+  if (a.n <= 4) return launch<4, LOSS, T, MULTI>(a, s);
+  if (a.n <= 8) return launch<8, LOSS, T, MULTI>(a, s);
+  if (a.n <= 16) return launch<16, LOSS, T, MULTI>(a, s);
   return cudaErrorInvalidValue;
+}
+
+// One lane runs the single-problem kernel; more run the lane kernel.
+template <int LOSS, typename T>
+cudaError_t launch_lanes(const PdArgs& a, cudaStream_t s) {
+  if (a.num_lanes == 1) return launch_width<LOSS, T, false>(a, s);
+  return launch_width<LOSS, T, true>(a, s);
 }
 
 template <int LOSS>
 cudaError_t dispatch(const PdArgs& a, cudaStream_t s) {
-  if (a.n < 1) return cudaErrorInvalidValue;
-  if (a.storage == kF32) return launch_width<LOSS, float>(a, s);
-  if (a.storage == kBF16) return launch_width<LOSS, __nv_bfloat16>(a, s);
+  if (a.n < 1 || a.num_lanes < 1) return cudaErrorInvalidValue;
+  if (a.storage == kF32) return launch_lanes<LOSS, float>(a, s);
+  if (a.storage == kBF16) return launch_lanes<LOSS, __nv_bfloat16>(a, s);
   return cudaErrorInvalidValue;
 }
 

@@ -2,7 +2,11 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/tv_prox.py:tv_prox
 // (body _tv_prox_kernel): out[e, j] = clip(u[e, j], -bound[e], bound[e]),
-// u (E, n) float32 or bfloat16, bound (E,) float32.  As in the reference
+// u (E, n) float32 or bfloat16, bound (E,) float32.  The lanes of a
+// lambda path or a batch, u (L, E, n) with each lane's bounds (L, E) (the
+// grid axis jax.vmap adds to the reference kernel), are the contiguous
+// rows (L E, n) with bounds (L E,): one launch for every lane, as
+// kernels/tv_prox.py passes them.  As in the reference
 // (bound.astype(u.dtype)), the bound is rounded to u's type before the
 // clip: for bfloat16 with __float2bfloat16_rn, round to nearest even like
 // Tensor.to(torch.bfloat16).  Its plain version is

@@ -11,7 +11,9 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` -> the current CUDA device; anything else as given.
+    """``None`` -> the current CUDA device; anything else as given, a
+    CUDA device without an index as the current one (so that it equals
+    the device of the tensors on it).
 
     Raises ``RuntimeError`` when CUDA is asked for (explicitly or by
     default) and ``torch.cuda.is_available()`` is false.
@@ -21,4 +23,6 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "repro_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run the plain PyTorch path")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

@@ -3,12 +3,13 @@
   * :mod:`repro_torch.engine.step` — the canonical :func:`pd_step` over a
     :class:`GraphExecutor`, the eq.-11 :func:`certificate`, and the
     fixed-point :func:`pd_residual`,
-  * :mod:`repro_torch.engine.executors` — the dense gather-sum and the
-    edge-blocked window executors,
+  * :mod:`repro_torch.engine.executors` — the dense gather-sum (one
+    problem or lane-stacked) and the edge-blocked window executors,
   * :mod:`repro_torch.engine.loop` — metric cadence, the device-resident
     tol loop and its one fetch, iteration caps and continuation defaults.
 """
-from repro_torch.engine.executors import DenseExecutor, WindowExecutor
+from repro_torch.engine.executors import (BatchedDenseExecutor,
+                                          DenseExecutor, WindowExecutor)
 from repro_torch.engine.loop import (capped, default_warm_lam, device_fetch,
                                      device_loop, iter_cap, scan_solve)
 from repro_torch.engine.step import (GraphExecutor, certificate,
@@ -16,8 +17,9 @@ from repro_torch.engine.step import (GraphExecutor, certificate,
                                      pd_residual, pd_step)
 
 __all__ = [
-    "DenseExecutor", "GraphExecutor", "WindowExecutor", "capped",
-    "certificate", "default_warm_lam", "device_fetch", "device_loop",
+    "BatchedDenseExecutor", "DenseExecutor", "GraphExecutor",
+    "WindowExecutor", "capped", "certificate", "default_warm_lam",
+    "device_fetch", "device_loop",
     "ensure_column", "iter_cap", "optimality_gap", "pd_residual",
     "pd_step", "scan_solve",
 ]

@@ -2,6 +2,9 @@
 
   * :class:`DenseExecutor`  — padded incidence-table gather-sum over the
     whole graph (the dense backend),
+  * :class:`BatchedDenseExecutor` — the same over a leading lane axis:
+    a lambda path on one graph, or a batch of graphs of one shape (the
+    reference vmaps the dense executor),
   * :class:`WindowExecutor` — the windows of the edge-blocked layout
     (the fused kernel's plain version, ``kernels.ref``).
 
@@ -14,6 +17,9 @@ import dataclasses
 from typing import Any
 
 import torch
+
+from repro_torch.core.graph import (batched_incidence_apply,
+                                    batched_incidence_transpose_apply)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,6 +37,42 @@ class DenseExecutor:
 
     def edge_diff(self, z: torch.Tensor) -> torch.Tensor:
         return self.graph.incidence_apply(z)
+
+    def owned_duals(self, u: torch.Tensor) -> torch.Tensor:
+        return u
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchedDenseExecutor:
+    """The dense executor over a leading lane axis L: the state is (L, V,
+    n) / (L, E, n).  The graph arrays are one graph's, shared by every
+    lane (``shared``: a lambda path), or carry the lane axis
+    (``stacked``: ``solve_many``'s graphs, which share a shape but not a
+    structure).  ``weights`` is (E,) or (L, E)."""
+
+    src: torch.Tensor
+    dst: torch.Tensor
+    weights: torch.Tensor
+    inc_edges: torch.Tensor
+    inc_signs: torch.Tensor
+
+    @classmethod
+    def shared(cls, graph) -> "BatchedDenseExecutor":
+        return cls(graph.src, graph.dst, graph.weights, graph.inc_edges,
+                   graph.inc_signs)
+
+    @classmethod
+    def stacked(cls, graphs) -> "BatchedDenseExecutor":
+        return cls(*(torch.stack([getattr(g, k) for g in graphs])
+                     for k in ("src", "dst", "weights", "inc_edges",
+                               "inc_signs")))
+
+    def gather_duals(self, u: torch.Tensor) -> torch.Tensor:
+        return batched_incidence_transpose_apply(self.inc_edges,
+                                                 self.inc_signs, u)
+
+    def edge_diff(self, z: torch.Tensor) -> torch.Tensor:
+        return batched_incidence_apply(self.src, self.dst, z)
 
     def owned_duals(self, u: torch.Tensor) -> torch.Tensor:
         return u

@@ -91,18 +91,19 @@ def scan_solve(run_block: Callable, metrics: Callable, state0, *,
     if residual_fn is None:
         return state, ys
     res = (torch.stack(residuals) if residuals
-           else torch.zeros(0, device=ys[0].device))
+           else ys[0].new_zeros(ys[0].shape))
     return state, (ys, res)
 
 
 def _stack(records: list, metrics: Callable, state) -> tuple:
-    """Stack per-block metric tuples into per-metric (T,) tensors; a
-    0-block run gives (0,)-shaped traces of the right device."""
+    """Stack per-block metric tuples into per-metric (T, ...) tensors (a
+    metric may be one value per lane); a 0-block run gives (0, ...)
+    traces of the right device."""
     if records:
         return tuple(torch.stack(col) for col in zip(*records))
     shape = metrics(state)
-    return tuple(torch.zeros(0, dtype=m.dtype, device=m.device)
-                 for m in shape)
+    return tuple(torch.zeros((0,) + tuple(m.shape), dtype=m.dtype,
+                             device=m.device) for m in shape)
 
 
 def device_loop(run_block: Callable, state0, *, num_iters: int,
@@ -148,9 +149,11 @@ def device_loop(run_block: Callable, state0, *, num_iters: int,
     return state, traces, blocks * metric_every
 
 
-def device_fetch(t: torch.Tensor) -> int:
+def device_fetch(t: torch.Tensor):
     """The solver stack's one deliberate device->host transfer: a tol
-    solve's stopping iteration, as a Python int.
+    solve's stopping iteration, as a Python int (a 0-d tensor), or a
+    lane sweep's facts as one numpy array (its block count and per-lane
+    stopping iterations, in one tensor).
 
     Every tol solve routes its single fetch through here, and
     ``device_fetch.calls`` counts them.  It is the one call of a solve
@@ -159,13 +162,15 @@ def device_fetch(t: torch.Tensor) -> int:
     """
     device_fetch.calls += 1
     if t.device.type != "cuda":
-        return int(t.numpy())
-    mode = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode(0)
-    try:
-        return int(t.to("cpu").numpy())
-    finally:
-        torch.cuda.set_sync_debug_mode(mode)
+        host = t.numpy()
+    else:
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            host = t.to("cpu").numpy()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+    return int(host) if t.ndim == 0 else host
 
 
 device_fetch.calls = 0

@@ -10,7 +10,8 @@ over a :class:`GraphExecutor`:
     dual prox      u+  = prox_{sigma dg*}(u + Sigma dw)   (step 10)
 
 plus the Krasnosel'skii-Mann relaxation folded in when ``rho != 1``.
-The dense backend runs it through ``executors.DenseExecutor``, and the
+The dense backend runs it through ``executors.DenseExecutor`` (and over
+lanes, with one lambda per lane, ``executors.BatchedDenseExecutor``), and the
 fused kernel's plain version (``kernels.ref.fused_pd_step_ref``) runs it
 through ``executors.WindowExecutor``.
 """
@@ -90,14 +91,19 @@ def pd_step(executor: GraphExecutor, prox: Callable, regularizer, lam,
     return w_new, u_new
 
 
-def pd_residual(tau, sigma, w, u, w_new, u_new) -> torch.Tensor:
+def pd_residual(tau, sigma, w, u, w_new, u_new, *,
+                lanes: bool = False) -> torch.Tensor:
     """Scaled fixed-point residual of the PD operator — the eq.-11 proxy:
     max of ``|w+ - w| / tau`` and ``|u+ - u| / sigma`` (order-independent,
     so every backend computes the identical residual from identical
-    iterates)."""
-    rp = torch.max(torch.abs(w_new - w) / _col(tau))
-    rd = torch.max(torch.abs(u_new - u) / _col(sigma))
-    return torch.maximum(rp, rd)
+    iterates).  ``lanes``: the state carries a leading lane axis, and the
+    residual is one per lane, (L,)."""
+    dw = torch.abs(w_new - w) / _col(tau)
+    du = torch.abs(u_new - u) / _col(sigma)
+    if lanes:
+        return torch.maximum(dw.flatten(1).amax(dim=1),
+                             du.flatten(1).amax(dim=1))
+    return torch.maximum(torch.max(dw), torch.max(du))
 
 
 def certificate(problem, w: torch.Tensor, u: torch.Tensor) -> dict:

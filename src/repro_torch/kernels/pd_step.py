@@ -20,11 +20,18 @@ Build: ``kernels/_build.py`` compiles it with the port's other CUDA
 sources into one shared library on first use; nothing is built or loaded
 at import.
 
+A leading lane axis (``w_store`` (L, rows, n), ``u_store`` (L, urows,
+n), ``la`` (L, nb*EB, 1): L problems on one layout with one set of prox
+parameters, a lambda path) runs in the same single launch; the
+reference gets that axis from ``jax.vmap``.
+
 This wrapper takes CUDA tensors only and raises on anything it does not
 take; ``kernels.ops.pd_step`` sends CPU tensors to the plain version.
 Its checks run before the device check, so the CPU tests reach them.
-``fused_pd_step.launches`` counts the launches, and
-``fused_pd_step.variant_launches`` counts them by ``"<loss>/<dtype>"``.
+``fused_pd_step.launches`` counts the launches,
+``fused_pd_step.variant_launches`` counts them by ``"<loss>/<dtype>"``,
+and ``fused_pd_step.lane_launches`` counts those over more than one lane
+by the same key.
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._build import check_tensor as _check
 
 MAX_FEATURES = 16          # the kernel's widest per-thread register tile
+MAX_LANES = 4096           # lanes of one launch (a shared float each)
 
 # the loss kinds of csrc/pd_step.cuh, with the prox parameters the kernel
 # reads (the sorted keys of each loss's prox_setup)
@@ -64,6 +72,9 @@ class _PdArgs(ctypes.Structure):
         ("rho", _F32), ("iters", _I32), ("compute_residual", _I32),
         ("loss_kind", _I32), ("storage", _I32), ("num_samples", _I32),
         ("num_inner", _I32), ("alpha", _F32),
+        ("num_lanes", _I64), ("w_in_lane", _I64), ("u_in_lane", _I64),
+        ("w_out_lane", _I64), ("u_out_lane", _I64), ("wc_lane", _I64),
+        ("uc_lane", _I64), ("la_lane", _I64),
     ]
 
 
@@ -111,6 +122,22 @@ def stages_fit(loss, n: int, num_samples: int) -> bool:
     return need <= limit
 
 
+def _check_rows(name: str, t: torch.Tensor, shape: tuple,
+                dtype: torch.dtype, device: torch.device) -> None:
+    """Like ``check_tensor``, but a lane-stacked (L, rows, n) output may
+    be a view with any lane stride (the owned rows of lane-stacked
+    stores) as long as each lane's rows are contiguous."""
+    if t.ndim != 3:
+        _check(name, t, shape, dtype, device)
+        return
+    _check(name, t[0], shape[1:], dtype, device)
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if t.stride(0) < t.shape[1] * t.shape[2]:
+        raise ValueError(f"{name}: lanes overlap (stride {t.stride()})")
+
+
 def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
                   params: tuple, tau: torch.Tensor,
                   src: torch.Tensor, dst: torch.Tensor, sigma: torch.Tensor,
@@ -120,8 +147,9 @@ def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
                   iters: int = 1, compute_residual: bool = False,
                   out: tuple | None = None,
                   active: torch.Tensor | None = None):
-    """Fused PD step on the card (storage shapes and ``out`` / ``active``
-    as :func:`kernels.ref.fused_pd_step_ref`).  ``incidence`` is the
+    """Fused PD step on the card (storage shapes, the lane axis and
+    ``out`` / ``active`` as :func:`kernels.ref.fused_pd_step_ref`).
+    ``incidence`` is the
     layout's compact incidence ``(in_ptr, in_ids, out_run)``
     (``EdgeBlockLayout.compact``), which the kernel reads where its plain
     version reads the padded tables.  Returns (w_new (nb*BV, n), u_new
@@ -129,6 +157,8 @@ def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
     ``out`` pair the launch wrote (it may be the owned rows of
     ``w_store`` / ``u_store``: the kernel updates in place safely); with
     ``compute_residual`` also the f32 scalar eq.-11 residual of the call.
+    Lane-stacked stores give (L, nb*BV, n) / (L, nb*EB, n) outputs and an
+    (L,) residual, one launch for every lane.
     ``active`` (a one-element bool tensor, with ``out``) is the stop word
     of a tol solve: when it is False the launch writes nothing.  Launches
     on the current stream and does not synchronize."""
@@ -156,7 +186,12 @@ def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
         raise ValueError(f"iters must be >= 1, got {iters}")
     if iters != 1 and nb != 1:
         raise ValueError("multi-iteration fusion requires a single block")
-    n = w_store.shape[1]
+    lanes = w_store.shape[0] if w_store.ndim == 3 else None
+    lead = () if lanes is None else (lanes,)
+    if lanes is not None and not 1 <= lanes <= MAX_LANES:
+        raise ValueError(f"fused_pd_step takes 1..{MAX_LANES} lanes, got "
+                         f"{lanes}")
+    n = w_store.shape[-1]
     if n < 1:
         raise ValueError(f"fused_pd_step needs at least one feature, got {n}")
     if n > MAX_FEATURES:
@@ -170,8 +205,9 @@ def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
     device = w_store.device
     f32, i32 = torch.float32, torch.int32
     rows = (nb + kn - 1) * bv
-    _check("w_store", w_store, (rows, n), store, device)
-    _check("u_store", u_store, ((nb + klo + khi) * eb, n), store, device)
+    _check("w_store", w_store, lead + (rows, n), store, device)
+    _check("u_store", u_store, lead + ((nb + klo + khi) * eb, n), store,
+           device)
     params = tuple(params)
     shapes = _param_shapes(kind, rows, n, params)
     if len(params) != len(shapes):
@@ -182,8 +218,9 @@ def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
     num_samples = params[4].shape[1] if kind == 2 else 0
     _check("tau", tau, (rows, 1), f32, device)
     for label, t, dt in (("src", src, i32), ("dst", dst, i32),
-                         ("sigma", sigma, f32), ("la", la, f32)):
+                         ("sigma", sigma, f32)):
         _check(label, t, (nb * eb, 1), dt, device)
+    _check("la", la, lead + (nb * eb, 1), f32, device)
     if (not isinstance(incidence, (tuple, list)) or len(incidence) != 3
             or any(t is None for t in incidence)):
         raise ValueError("fused_pd_step reads the compact incidence: pass "
@@ -198,8 +235,8 @@ def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
                          f"{tuple(in_ids.shape)}")
     _check("incidence in_ids", in_ids, tuple(in_ids.shape), i32, device)
     if out is not None:
-        _check("out[0]", out[0], (nb * bv, n), store, device)
-        _check("out[1]", out[1], (nb * eb, n), store, device)
+        _check_rows("out[0]", out[0], lead + (nb * bv, n), store, device)
+        _check_rows("out[1]", out[1], lead + (nb * eb, n), store, device)
     if active is not None:
         if out is None:
             raise ValueError("active needs out: a stopped launch writes "
@@ -221,16 +258,19 @@ def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
             + f" needs {need} (the solver runs such a problem unfused)")
 
     if out is None:
-        out = (torch.empty((nb * bv, n), dtype=store, device=device),
-               torch.empty((nb * eb, n), dtype=store, device=device))
+        out = (torch.empty(lead + (nb * bv, n), dtype=store, device=device),
+               torch.empty(lead + (nb * eb, n), dtype=store, device=device))
     w_new, u_new = out
-    z = torch.empty((nb * bv, n), dtype=f32, device=device)
-    res = torch.zeros((1,), dtype=f32, device=device)
+    z = torch.empty(lead + (nb * bv, n), dtype=f32, device=device)
+    res = torch.zeros((lanes or 1,), dtype=f32, device=device)
     if store == f32 or iters == 1:
         carry = (w_new, u_new)          # f32 carry lives in the outputs
     else:
-        carry = (torch.empty((nb * bv, n), dtype=f32, device=device),
-                 torch.empty((nb * eb, n), dtype=f32, device=device))
+        carry = (torch.empty(lead + (nb * bv, n), dtype=f32, device=device),
+                 torch.empty(lead + (nb * eb, n), dtype=f32, device=device))
+
+    def lane_stride(t):
+        return t.stride(0) if lanes is not None else 0
     args = _PdArgs(
         w_store.data_ptr(), u_store.data_ptr(), in_ptr.data_ptr(),
         in_ids.data_ptr(), out_run.data_ptr(),
@@ -240,24 +280,28 @@ def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
         la.data_ptr(), w_new.data_ptr(), u_new.data_ptr(),
         carry[0].data_ptr(), carry[1].data_ptr(), z.data_ptr(),
         res.data_ptr(), None if active is None else active.data_ptr(),
-        nb * bv, nb * eb, klo * eb, u_store.shape[0], in_ids.shape[0],
+        nb * bv, nb * eb, klo * eb, u_store.shape[-2], in_ids.shape[0],
         n, reg_kind, int(rho != 1.0), float(rho), int(iters),
         int(compute_residual), kind, _STORAGE[store], num_samples,
         int(getattr(loss, "num_inner", 0)),
-        float(getattr(loss, "alpha", 0.0)))
+        float(getattr(loss, "alpha", 0.0)), lanes or 1,
+        *map(lane_stride, (w_store, u_store, w_new, u_new, *carry, la)))
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         err = _build.entry("fused_pd_step_launch", _ARGTYPES)(
             ctypes.byref(args), stream)
     if err != 0:
         raise RuntimeError(f"fused_pd_step launch failed: CUDA error {err}")
+    variant = f"{name}/{str(store).removeprefix('torch.')}"
     fused_pd_step.launches += 1
-    fused_pd_step.variant_launches[
-        f"{name}/{str(store).removeprefix('torch.')}"] += 1
+    fused_pd_step.variant_launches[variant] += 1
+    if (lanes or 1) > 1:
+        fused_pd_step.lane_launches[variant] += 1
     if compute_residual:
-        return w_new, u_new, res[0]
+        return w_new, u_new, res if lanes is not None else res[0]
     return w_new, u_new
 
 
 fused_pd_step.launches = 0
 fused_pd_step.variant_launches = collections.Counter()
+fused_pd_step.lane_launches = collections.Counter()

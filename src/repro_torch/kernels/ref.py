@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the port's kernels.
 
 Each function states what the matching kernel computes, runs on any
-device, and is what ``kernels.ops`` runs for a tensor on the CPU.  The
+device, and is what ``kernels.ops`` runs for a tensor on the CPU.  Each
+also takes the leading lane axis its kernel takes (a lambda path or a
+batch of problems; the reference gets it from ``jax.vmap``).  The
 fused primal-dual window step is not restated here: it is the canonical
 :func:`repro_torch.engine.step.pd_step` evaluated through a
 :class:`repro_torch.engine.executors.WindowExecutor`, as in the
@@ -20,20 +22,26 @@ def tv_prox_ref(u: torch.Tensor, bound: torch.Tensor) -> torch.Tensor:
     """Edge-wise dual clipping T^(lambda A_e) (paper Algorithm 1, step 10).
 
     u: (E, n) dual edge signal; bound: (E,) per-edge clip level lambda*A_e.
-    The bound is rounded to u's dtype before the clip, as the reference
-    kernel does (``bound.astype(u.dtype)``), so a bfloat16 ``u`` clips
-    against bfloat16 levels and the result stays bfloat16.
+    With lanes, u (L, E, n) and bound (L, E) (lane l clips to lam_l A_e)
+    or (E,) shared by every lane.  The bound is rounded to u's dtype
+    before the clip, as the reference kernel does
+    (``bound.astype(u.dtype)``), so a bfloat16 ``u`` clips against
+    bfloat16 levels and the result stays bfloat16.
     """
-    b = bound.to(u.dtype)[:, None]
+    b = bound.to(u.dtype)[..., None]
     return torch.clamp(u, -b, b)
 
 
 def batched_affine_ref(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Node-wise primal ridge update w_i = P_i @ v_i (paper eq. 21).
 
-    p: (V, n, n); v: (V, n) (already includes the +b_i shift).
+    p: (V, n, n); v: (V, n) (already includes the +b_i shift).  With
+    lanes, v (L, V, n) and p (V, n, n) shared by every lane or (L, V, n,
+    n) per lane.
     """
-    return torch.einsum("vnk,vk->vn", p, v)
+    if v.ndim == 2:
+        return torch.einsum("vnk,vk->vn", p, v)
+    return torch.einsum("...vnk,...vk->...vn", p, v)
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -120,7 +128,14 @@ def fused_pd_step_ref(w_store: torch.Tensor, u_store: torch.Tensor,
     Returns (w_new (nb*BV, n), u_new (nb*EB, n)) in the storage dtype,
     plus the f32 scalar eq.-11 residual of the call with
     ``compute_residual`` (max over blocks; for ``iters > 1`` the running
-    max over iterations).  ``iters > 1`` requires nb == 1: the window is
+    max over iterations).
+
+    Lanes: ``w_store`` (L, rows, n), ``u_store`` (L, urows, n) and ``la``
+    (L, nb*EB, 1) stack L problems on one layout whose prox parameters,
+    tau and sigma they share (a lambda path); the outputs then carry the
+    lane axis and the residual is (L,).  Each lane's windows are more
+    windows of the same step, so every lane computes what a one-lane call
+    on its inputs computes.  ``iters > 1`` requires nb == 1: the window is
     then the whole graph and the relaxed output feeds straight back in,
     through an f32 carry that is rounded to the storage dtype once, at
     the end (the reference's per-launch rounding).
@@ -139,26 +154,40 @@ def fused_pd_step_ref(w_store: torch.Tensor, u_store: torch.Tensor,
     if active is not None and out is None:
         raise ValueError("active needs out: a stopped launch writes "
                          "nothing, so the outputs must be the state")
-    n = w_store.shape[1]
+    n = w_store.shape[-1]
     nw, ew = kn * bv, (klo + 1 + khi) * eb
     dev = w_store.device
     store = w_store.dtype
+    lanes = w_store.shape[0] if w_store.ndim == 3 else None
+    nl = lanes or 1
+
+    def rep(t):
+        """A shared (nb, ...) window table for every lane's windows."""
+        if lanes is None:
+            return t
+        return t.expand((lanes,) + tuple(t.shape)).reshape(
+            (lanes * nb,) + tuple(t.shape[1:]))
+
+    def lane_max(x):
+        """(L*nb, ...) per-window values -> (L,) lane maxima."""
+        return x.reshape(lanes, -1).amax(dim=1)
 
     n0 = torch.arange(nb, device=dev) * bv                  # window starts
     e0 = torch.arange(nb, device=dev) * eb
     nrow = n0[:, None] + torch.arange(nw, device=dev)       # (nb, NW)
     erow = e0[:, None] + torch.arange(ew, device=dev)       # (nb, EW)
-    w_win, u_win = w_store[nrow], u_store[erow]
-    isg = inc_signs[nrow]
+    w_win = w_store[..., nrow, :].reshape(nl * nb, nw, n)
+    u_win = u_store[..., erow, :].reshape(nl * nb, ew, n)
+    isg = rep(inc_signs[nrow])
     # prox parameters are read-only across iterations: upcast once here
-    params_win = tuple(_f32(a[nrow]) for a in params)
-    tau_win = tau[nrow]                                     # (nb, NW, 1)
-    sg = sigma.reshape(nb, eb, 1)
-    bd = la.reshape(nb, eb, 1)
+    params_win = tuple(rep(_f32(a[nrow])) for a in params)
+    tau_win = rep(tau[nrow])                                # (nb, NW, 1)
+    sg = rep(sigma.reshape(nb, eb, 1))
+    bd = la.reshape(nl * nb, eb, 1)
     # storage ids -> window-local (clipped; sign 0 kills stray slots)
-    el = torch.clamp(inc_edges[nrow] - e0[:, None, None], 0, ew - 1)
-    sl = torch.clamp(src.reshape(nb, eb) - n0[:, None], 0, nw - 1)
-    dl = torch.clamp(dst.reshape(nb, eb) - n0[:, None], 0, nw - 1)
+    el = rep(torch.clamp(inc_edges[nrow] - e0[:, None, None], 0, ew - 1))
+    sl = rep(torch.clamp(src.reshape(nb, eb) - n0[:, None], 0, nw - 1))
+    dl = rep(torch.clamp(dst.reshape(nb, eb) - n0[:, None], 0, nw - 1))
 
     def one(w_, u_):
         return pd_window_step(w_, u_, el, isg, params_win, tau_win, sl, dl,
@@ -166,16 +195,24 @@ def fused_pd_step_ref(w_store: torch.Tensor, u_store: torch.Tensor,
                               klo=klo, block_edges=eb, rho=rho)
 
     tau_own = tau_win[:, :bv]
-    res = torch.zeros((), dtype=torch.float32, device=dev)
+    lead = () if lanes is None else (lanes,)
+
+    def residual(w_old, u_old, w_n, u_n):
+        if lanes is None:
+            return window_residual(w_old, u_old, w_n, u_n, tau_own, sg)
+        rp = lane_max(torch.abs(_f32(w_n) - _f32(w_old)) / _f32(tau_own))
+        rd = lane_max(torch.abs(_f32(u_n) - _f32(u_old)) / _f32(sg))
+        return torch.maximum(rp, rd)
+
+    res = torch.zeros(lead, dtype=torch.float32, device=dev)
     if iters == 1:
         w_o, u_o = one(w_win, u_win)
         if compute_residual:
             # owned dual rows sit at window offset klo*EB
             u_owned = u_win[:, klo * eb:(klo + 1) * eb]
-            res = window_residual(w_win[:, :bv], u_owned, w_o[:, :bv], u_o,
-                                  tau_own, sg)
-        w_new, u_new = w_o[:, :bv].reshape(nb * bv, n), u_o.reshape(nb * eb,
-                                                                    n)
+            res = residual(w_win[:, :bv], u_owned, w_o[:, :bv], u_o)
+        w_new = w_o[:, :bv].reshape(lead + (nb * bv, n))
+        u_new = u_o.reshape(lead + (nb * eb, n))
     else:
         # nb == 1 (so kn == 1 and the owned dual rows are the whole
         # window); the carry runs in f32 and rounds once at the end
@@ -183,11 +220,11 @@ def fused_pd_step_ref(w_store: torch.Tensor, u_store: torch.Tensor,
         for _ in range(iters):
             w_n, u_n = one(w_c, u_c)
             if compute_residual:
-                res = torch.maximum(res, window_residual(
-                    w_c[:, :bv], u_c, w_n[:, :bv], u_n, tau_own, sg))
+                res = torch.maximum(res, residual(w_c[:, :bv], u_c,
+                                                  w_n[:, :bv], u_n))
             w_c, u_c = w_n, u_n
-        w_new = w_c[:, :bv].reshape(bv, n).to(store)
-        u_new = u_c.reshape(eb, n).to(store)
+        w_new = w_c[:, :bv].reshape(lead + (bv, n)).to(store)
+        u_new = u_c.reshape(lead + (eb, n)).to(store)
     if out is not None:
         if active is not None:
             flag = active.reshape(())

@@ -13,7 +13,8 @@ gather (1e-12: float64 sums in another order).  The auto-tuner builds
 the compact tables once, for the layout it keeps.  The kernel wrapper
 refuses missing or mismatched tables before it looks for the card, and
 the plain version never reads them.  A node whose prox parameters pass
-the kernel's shared-memory staging sends the solver's fused gate to the
+the kernel's shared-memory staging, or a problem wider than the kernel's
+widest register tile (n > 16), sends the solver's fused gate to the
 unfused path (on a simulated CUDA dispatch, with the kernel's count
 stubbed: the CPU has no kernel library).
 
@@ -346,6 +347,66 @@ def test_fused_gate_runs_unstageable_nodes_unfused(fits, cuda_gate,
     if not fits:
         with pytest.raises(NotImplementedError, match="bfloat16"):
             Solver(cfg.replace(dtype="bfloat16")).run(problem)
+
+
+def _wide_problem(n, device="cpu"):
+    """A squared problem with ``n`` features a node on a 40-node SBM (24
+    samples a node, every other node labeled), in the port and, from the
+    same numpy arrays, in the reference."""
+    import jax.numpy as jnp
+    from repro.api import Problem as JProblem
+    from repro.core import graph as jg
+    from repro.core.losses import NodeData as JNodeData
+    from repro_torch.core.losses import NodeData
+
+    def graph(mod, **kw):
+        return mod.sbm_graph(np.random.default_rng(17), (20, 20), 0.3, 0.05,
+                             **kw)
+
+    g, assign = graph(core_graph, device=device)
+    rng = np.random.default_rng(18)
+    levels = rng.standard_normal((2, n))
+    x = rng.standard_normal((40, 24, n)).astype(np.float32)
+    y = (np.einsum("vmn,vn->vm", x, levels[assign % 2])
+         + 0.05 * rng.standard_normal((40, 24))).astype(np.float32)
+    mask = np.ones((40, 24), np.float32)
+    labeled = (np.arange(40) % 2 == 0).astype(np.float32)
+    arrays = (x, y, mask, labeled)
+    data = NodeData(*(torch.from_numpy(a) for a in arrays))
+    jdata = JNodeData(*(jnp.asarray(a) for a in arrays))
+    return (Problem.create(g, data, 1e-2, device=device),
+            JProblem.create(graph(jg)[0], jdata, 1e-2))
+
+
+def test_fused_gate_runs_wide_problems_unfused(cuda_gate, monkeypatch):
+    """n = 17 features, past the kernel's widest register tile: the
+    fused gate refuses it on the card (before it asks the staging
+    count), so ``Solver(backend="pallas")`` runs the unfused path, within
+    1e-4 of the reference's dense ``w``, instead of raising in the
+    wrapper; ``solve_path``'s fused lanes go through the same gate.  At
+    n = 16 the gate fuses."""
+    from repro.api import Solver as JSolver
+    from repro.api import SolverConfig as JConfig
+    from repro_torch.api import solve_path
+
+    def staging(*_args):
+        raise AssertionError("the gate asked the staging count")
+
+    monkeypatch.setattr(pd_step, "staging_bytes", staging)
+    conf = dict(num_iters=200, rho=1.9, metric_every=50)
+    problem, jproblem = _wide_problem(17)
+    cfg = SolverConfig(backend="pallas", **conf)
+    got = Solver(cfg).run(problem)
+    assert not cuda_gate
+    want = JSolver(JConfig(**conf)).run(jproblem)
+    np.testing.assert_allclose(got.w.numpy(), np.asarray(want.w), rtol=0,
+                               atol=1e-4)
+    path = solve_path(problem, [1e-2, 3e-2],
+                      cfg.replace(warm_iters=100, final_iters=100))
+    assert not cuda_gate and path.w.shape == (2, 40, 17)
+    monkeypatch.setattr(pd_step, "staging_bytes", lambda *_args: (1, 2))
+    Solver(cfg).run(_wide_problem(16)[0])
+    assert len(cuda_gate) == 1
 
 
 def _need_card():

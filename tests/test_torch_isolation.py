@@ -3,8 +3,9 @@
   * no module of ``src/repro_torch/`` (nor ``chip_smoke.py``) imports
     ``jax`` or the reference package ``repro``,
   * entry points default to the CUDA card and raise without one instead
-    of moving to the CPU,
-  * what this slice leaves out raises ``NotImplementedError``.
+    of moving to the CPU (``solve_path`` and ``solve_many`` run on their
+    problems' device, which defaults to the card),
+  * what the port leaves out raises ``NotImplementedError``.
 """
 import ast
 from pathlib import Path
@@ -50,16 +51,23 @@ def no_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("entry", ["make_sbm_regression", "build_graph",
-                                   "problem_create", "state_from_arrays"])
+                                   "problem_create", "state_from_arrays",
+                                   "solve_path", "solve_many"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
     with pytest.raises(RuntimeError, match="CUDA"):
         if entry == "make_sbm_regression":
             make_sbm_regression(seed=0)
         elif entry == "build_graph":
             build_graph(np.array([[0, 1]]), np.ones(1, np.float32), 2)
-        elif entry == "problem_create":
+        elif entry in ("problem_create", "solve_path", "solve_many"):
             ds = make_sbm_regression(seed=0, device="cpu")
-            Problem.create(ds.graph, ds.data, 1e-3)
+            if entry == "solve_path":
+                solve_path(Problem.create(ds.graph, ds.data, 1e-3),
+                           [1e-3, 1e-2])
+            elif entry == "solve_many":
+                solve_many([Problem.create(ds.graph, ds.data, 1e-3)])
+            else:
+                Problem.create(ds.graph, ds.data, 1e-3)
         else:
             interop.state_from_arrays(np.zeros((2, 2)), np.zeros((1, 2)))
 
@@ -96,6 +104,3 @@ def test_unported_paths_raise(cpu_problem):
     for name in ("sharded", "sharded_fused", "federated"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_backend(name)
-    for fn in (solve_path, solve_many):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(cpu_problem)
