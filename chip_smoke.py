@@ -25,7 +25,15 @@ against the dense path's), the masked tol sweep through the unfused
 lanes under sync debug mode "error", and ``solve_many`` of four problems
 on two graph structures; each lane kernel against its plain version and
 against one-lane launches, and a problem wider than the fused kernel's
-tile solved through the unfused path.
+tile solved through the unfused path.  Then the two lambda paths
+that once raised (``lane_faults``: a logistic path past the kernel's
+lane plan runs the unfused lanes; 4097 lambdas launch in lane groups,
+bit-identical to one-lane solves), the federated runtime in synchronous
+mode against the dense backend on §5 and the zoo (``federated_s5``) and
+at full size with partial participation, int8 messages, its ledger and a
+checkpointed resume (``federated_full_size``), and telemetry at full size
+(``obs_full_size``: the fused solve with telemetry off and on, and a
+traced dense block's device time by Algorithm 1 phase).
 Each phase prints one JSON line with its seconds; any mismatch or error
 exits non-zero before the result.  The last three lines are the kernels'
 line, the card's name and power limit (``nvidia-smi``), and ``{"ok":
@@ -40,6 +48,7 @@ outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import bisect
 import contextlib
 import json
 import subprocess
@@ -942,11 +951,11 @@ def full_size_solve(torch, dev, cfg, problem, w_true, *, drift=False,
     return row, entry
 
 
-def phase_full_size(torch, dev, cfg, big, w_true, gen_s) -> dict:
+def phase_full_size(torch, dev, cfg, big, w_true, gen_s) -> tuple:
     """The scale-out topology at FULL_NODES through the fused path
     (squared loss, float32), the kernel alone and its plain version, a
     float64 yardstick and a profiled metric block.  Returns the kernel's
-    entry for the kernels' line."""
+    entry for the kernels' line and the solve's iterations/s."""
     from repro_torch.api import backends
 
     row, entry = full_size_solve(torch, dev, cfg, big, w_true, drift=True,
@@ -955,7 +964,7 @@ def phase_full_size(torch, dev, cfg, big, w_true, gen_s) -> dict:
     emit({"phase": "full_size", "generate_seconds": gen_s,
           "compact_incidence_build_seconds": csr_s,
           "max_degree": big.graph.max_degree, **row})
-    return entry
+    return entry, row["iterations_per_s"]
 
 
 def phase_full_size_variants(torch, dev, cfg, big, w_true, others) -> list:
@@ -1842,6 +1851,393 @@ def phase_wide_features(torch, dev) -> None:
     require(dw <= SOLVE_TOL, f"n = {n} unfused vs dense |dw| = {dw}")
 
 
+LANE_WINDOW_SAMPLES = 14523     # F1: fits the kernel's plan as one lane only
+F2_LANES = 4097                 # F2: one lane past a launch's MAX_LANES
+PHASES = ("alg1_gather_duals", "alg1_primal_prox", "alg1_edge_diff",
+          "alg1_dual_prox", "alg1_km_relaxation")
+FED_TOL = 1e-6                  # federated sync vs dense: w, objective rel
+
+
+def phase_lane_faults(torch, dev) -> None:
+    """Two lambda paths that once raised on the card (ROADMAP §3, F1 and
+    F2 under "Fixed").  F1: a logistic problem whose nodes (14,523
+    samples at n = 2) fit the kernel's plan as one lane but not as six;
+    ``solve_path`` over six lambdas must route to the unfused lanes (no
+    fused lane launch) and solve, within 1e-4 of the dense path.  F2: the
+    §5 instance over 4097 lambdas through the fused lanes: each step
+    launches a group of MAX_LANES lanes and a group of one, and the
+    first and last lanes equal one-lane fused solves from the same warm
+    start bit for bit."""
+    from repro_torch.api import Problem, SolverConfig, backends, solve_path
+    from repro_torch.core.graph import sbm_graph
+    from repro_torch.data.synthetic import (make_classification_data,
+                                            make_sbm_regression)
+    from repro_torch.engine import default_warm_lam
+    from repro_torch.kernels import pd_step
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(LANE_WINDOW_SAMPLES)
+    g, assign = sbm_graph(rng, (20, 20), 0.3, 0.05, device=dev)
+    ds = make_classification_data(
+        rng, g, np.where(assign[:, None] % 2 == 0, [2.0, 2.0], [-2.0, 2.0]),
+        samples_per_node=LANE_WINDOW_SAMPLES, num_labeled=20)
+    problem = Problem.create(g, ds.data, 1e-2, loss="logistic", device=dev)
+    fits = {lanes: pd_step.stages_fit(problem.loss, 2, LANE_WINDOW_SAMPLES,
+                                      lanes) for lanes in (1, 6)}
+    require(fits == {1: True, 6: False}, f"F1 plan window {fits}")
+    cfg = SolverConfig(backend="pallas", rho=1.9, warm_iters=100,
+                       final_iters=100, metric_every=10)
+    reset_launches()
+    got = solve_path(problem, PATH_LAMS, cfg)
+    torch.cuda.synchronize()
+    f1_launches = read_launches()
+    want = solve_path(problem, PATH_LAMS, cfg.replace(backend="dense"))
+    f1_dw = max_diff(got.w, want.w)
+    require(not f1_launches["lanes"]["fused_pd_step"]
+            and f1_launches["lanes"]["tv_prox"],
+            f"F1 path did not run the unfused lanes: {f1_launches}")
+    require(f1_dw <= SOLVE_TOL, f"F1 path vs dense path |dw| = {f1_dw}")
+
+    s5 = make_sbm_regression(seed=0)
+    p5 = Problem.create(s5.graph, s5.data, 1e-3)
+    lams = np.geomspace(1e-1, 1e-3, F2_LANES).astype(np.float32)
+    cfg = SolverConfig(backend="pallas", fused=True, rho=1.9,
+                       warm_iters=100, final_iters=100, metric_every=100,
+                       compute_diagnostics=False)
+    reset_launches()
+    t1 = time.perf_counter()
+    res = solve_path(p5, lams, cfg)
+    torch.cuda.synchronize()
+    f2_s = time.perf_counter() - t1
+    f2_launches = read_launches()
+    warm = backends.solve_pallas(p5.with_lam(default_warm_lam(
+        float(np.max(lams)))), cfg.replace(num_iters=cfg.warm_iters))
+    final_cfg = cfg.replace(num_iters=cfg.final_iters)
+    identical = {}
+    for k in (0, F2_LANES - 1):
+        u0 = p5.regularizer.project_dual(warm.u, p5.graph, float(lams[k]))
+        one = backends._solve_fused(p5.with_lam(float(lams[k])), final_cfg,
+                                    w0=warm.w, u0=u0)
+        identical[k] = bool(torch.equal(one.w, res.w[k])
+                            and torch.equal(one.objective, res.objective[k]))
+    emit({"phase": "lane_faults", "seconds": time.perf_counter() - t0,
+          "f1": {"loss": "logistic", "samples_per_node": LANE_WINDOW_SAMPLES,
+                 "stages_fit": {str(k): v for k, v in fits.items()},
+                 "lams": [float(x) for x in PATH_LAMS],
+                 "launches": f1_launches, "max_abs_dw_vs_dense_path": f1_dw},
+          "f2": {"lanes": F2_LANES, "max_lanes": pd_step.MAX_LANES,
+                 "solve_path_seconds": f2_s, "launches": f2_launches,
+                 "bit_identical_to_one_lane_solves": {
+                     str(k): v for k, v in identical.items()}}})
+    lane_launches = f2_launches["lanes"]["fused_pd_step"].get(
+        "squared/float32", 0)
+    require(res.w.shape[0] == F2_LANES
+            and bool(torch.isfinite(res.w).all()), "F2 path result")
+    require(lane_launches == 1 and f2_launches["fused_pd_step"] == 3,
+            f"F2: not one 4096-lane and one one-lane launch after the warm "
+            f"solve's: {f2_launches}")
+    require(all(identical.values()), f"F2 lanes vs one-lane {identical}")
+
+
+def range_device_ms(path: str, last: dict) -> dict:
+    """Device time of the kernels launched inside the last ``last[name]``
+    ranges of each name in a Chrome trace (``obs.profile.trace``; the
+    last ones, since the tracer may drop the events of its first
+    moments): each CPU range's kernel launches (the runtime calls inside
+    its span) matched to their kernels by correlation id.  Returns
+    {name: (ms, kernels)}, and under "all" every kernel launched from
+    the first range counted on."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernel_us = {e["args"]["correlation"]: e["dur"] for e in events
+                 if e.get("cat") == "kernel"
+                 and "correlation" in e.get("args", {})}
+    launches = sorted((e["ts"], kernel_us[e["args"]["correlation"]])
+                      for e in events
+                      if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                      and e.get("args", {}).get("correlation") in kernel_us)
+    launch_ts = [t for t, _ in launches]
+    out, start = {}, float("inf")
+    for name, count in last.items():
+        ranges = sorted((e for e in events
+                         if e.get("cat") == "user_annotation"
+                         and e.get("name") == name),
+                        key=lambda e: e["ts"])[-count:]
+        ms, n = 0.0, 0
+        for r in ranges:
+            lo = bisect.bisect_left(launch_ts, r["ts"])
+            hi = bisect.bisect_right(launch_ts, r["ts"] + r["dur"])
+            ms += sum(us for _, us in launches[lo:hi]) / 1e3
+            n += hi - lo
+            start = min(start, r["ts"])
+        out[name] = (ms, n)
+    rest = launches[bisect.bisect_left(launch_ts, start):]
+    out["all"] = (sum(us for _, us in rest) / 1e3, len(rest))
+    return out
+
+
+def phase_obs_full_size(torch, cfg, big, w_true, full_size_rate) -> None:
+    """Telemetry at full size: the fused squared float32 solve of
+    ``full_size`` with telemetry off and on (median of 3 each, after a
+    warm-up; iterations/s both ways, the same bits both ways), one
+    ``obs.profile.trace`` of a 100-iteration dense block (each
+    Algorithm 1 phase's device ms, from the kernels launched inside its
+    range), and the counter snapshot after a §5 tol solve with telemetry
+    on (one transfer)."""
+    import shutil
+
+    from repro_torch import obs
+    from repro_torch.api import Problem, Solver, SolverConfig
+    from repro_torch.data.synthetic import make_sbm_regression
+
+    t0 = time.perf_counter()
+    obs.disable()
+    obs.reset()
+    iterations = cfg.warm_iters + cfg.final_iters
+    Solver(cfg).run(big, w_true=w_true)
+    rates, results = {}, {}
+    for mode in ("off", "on", "off", "on", "off", "on"):
+        (obs.enable if mode == "on" else obs.disable)()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        results[mode] = Solver(cfg).run(big, w_true=w_true)
+        torch.cuda.synchronize()
+        rates.setdefault(mode, []).append(
+            iterations / (time.perf_counter() - t1))
+    obs.disable()
+    same = torch.equal(results["off"].w, results["on"].w)
+    med = {k: float(np.median(v)) for k, v in rates.items()}
+
+    logdir = ROOT / "build" / "obs_trace"
+    block = SolverConfig(backend="dense", num_iters=100, rho=1.9,
+                         metric_every=100, compute_diagnostics=False)
+    Solver(block).run(big)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with obs.profile.trace(str(logdir)):
+        for _ in range(2):             # the second block is read
+            Solver(block).run(big)
+        torch.cuda.synchronize()
+    trace_s = time.perf_counter() - t1
+    phases = range_device_ms(str(logdir / "trace.json"), {
+        **{p: block.num_iters for p in PHASES}, "solve_metrics": 1})
+    shutil.rmtree(logdir, ignore_errors=True)
+
+    s5 = make_sbm_regression(seed=0)
+    obs.reset()
+    obs.enable()
+    Solver(SolverConfig(num_iters=4000, rho=1.9, metric_every=10, tol=5e-3,
+                        compute_diagnostics=False)).run(
+        Problem.create(s5.graph, s5.data, 1e-2))
+    snap = obs.export.snapshot()
+    obs.disable()
+    counters = {m["name"] + json.dumps(m["labels"], sort_keys=True):
+                m["value"] for m in snap["metrics"]
+                if m["kind"] == "counter"}
+    emit({"phase": "obs_full_size", "seconds": time.perf_counter() - t0,
+          "solve": "fused squared f32, continuation", "iterations": iterations,
+          "iterations_per_s": rates, "median_iterations_per_s": med,
+          "full_size_iterations_per_s": full_size_rate,
+          "on_over_off": med["on"] / med["off"],
+          "off_over_full_size": med["off"] / full_size_rate,
+          "same_w_on_and_off": same,
+          "dense_block": {"iterations": 100, "traced_seconds": trace_s,
+                          "device_ms_per_iteration": {
+                              k: v[0] / 100 for k, v in phases.items()},
+                          "kernels_per_iteration": {
+                              k: v[1] / 100 for k, v in phases.items()}},
+          "counters": counters})
+    require(same, "telemetry on changed the fused solve's result")
+    require(all(f"{p}" in phases and phases[p][1] > 0 for p in PHASES),
+            f"the dense trace lacks device time for a phase: {phases}")
+    require(counters.get('repro_transfers_device_to_host_total{}') == 1.0,
+            f"§5 tol solve with telemetry on: {counters}")
+
+
+def phase_federated_s5(torch, dev) -> None:
+    """The federated runtime in synchronous mode (``backend="federated"``:
+    full participation, one local prox step, no compression) against the
+    dense backend on the card: the §5 instance (continuation, 3000 + 1000
+    rounds) and the 8 zoo scenarios (seed 0, smoke size, 200 rounds,
+    rho 1.9): ``w`` within 1e-6, objective trace within rtol 1e-6."""
+    from repro_torch.api import Problem, Solver, SolverConfig
+    from repro_torch.data.synthetic import make_sbm_regression
+    from repro_torch.scenarios import SCENARIOS, get_scenario
+
+    t0 = time.perf_counter()
+    s5 = make_sbm_regression(seed=0)
+    runs = [("paper_s5", Problem.create(s5.graph, s5.data, 1e-3), s5.w_true,
+             SolverConfig(continuation=True, rho=1.9, metric_every=100))]
+    for name in sorted(SCENARIOS):
+        inst = get_scenario(name).build(seed=0, smoke=True, device=dev)
+        runs.append((name, inst.problem, inst.w_true,
+                     SolverConfig(num_iters=200, rho=1.9)))
+    rows = {}
+    reset_launches()
+    for name, problem, truth, cfg in runs:
+        t1 = time.perf_counter()
+        fed = Solver(cfg.replace(backend="federated")).run(problem,
+                                                           w_true=truth)
+        torch.cuda.synchronize()
+        fed_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        dense = Solver(cfg).run(problem, w_true=truth)
+        torch.cuda.synchronize()
+        dense_s = time.perf_counter() - t1
+        dw, obj_rel = compare(fed, dense)
+        rows[name] = {"max_abs_dw_vs_dense": dw,
+                      "objective_max_rel_vs_dense": obj_rel,
+                      "bit_identical": bool(torch.equal(fed.w, dense.w)),
+                      "federated_seconds": fed_s, "dense_seconds": dense_s,
+                      "comm": fed.diagnostics["comm"]}
+        require(dw <= FED_TOL and obj_rel <= FED_TOL,
+                f"federated sync vs dense on {name}: |dw| {dw}, obj {obj_rel}")
+    launches = read_launches()
+    emit({"phase": "federated_s5", "seconds": time.perf_counter() - t0,
+          "tol": FED_TOL, "launches": launches, "runs": rows})
+
+
+def phase_federated_full_size(torch, big, w_true) -> None:
+    """The federated runtime at full size (the 1M clustered graph,
+    squared loss, n = 2, lambda 1e-3), 200 rounds, metric_every 20:
+    synchronous mode against 200 dense iterations (1e-6 bounds; rounds/s
+    against iterations/s); ``bernoulli`` (0.5) + ``int8`` + ``prox`` (2
+    steps), its ledger against a numpy recount from its schedule, bit for
+    bit; the same run checkpointed every 100 rounds (checkpoint seconds
+    and bytes), then interrupted at round 100 and resumed, bit-identical
+    to the straight run; peak device memory."""
+    import shutil
+
+    from repro_torch import obs
+    from repro_torch.api import Solver, SolverConfig
+    from repro_torch.federated import (FederatedConfig, engine,
+                                       get_local_update, get_participation,
+                                       run_federated)
+
+    t0 = time.perf_counter()
+    rounds, me = 200, 20
+    torch.cuda.reset_peak_memory_stats()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t1
+
+    reset_launches()
+    sync, sync_s = timed(lambda: run_federated(big, FederatedConfig(
+        num_rounds=rounds, rho=1.9, metric_every=me), w_true=w_true))
+    launches = read_launches()
+    dense, dense_s = timed(lambda: Solver(SolverConfig(
+        num_iters=rounds, rho=1.9, metric_every=me)).run(big, w_true=w_true))
+    dw, obj_rel = compare(sync, dense)
+    require(dw <= FED_TOL and obj_rel <= FED_TOL,
+            f"1M federated sync vs dense: |dw| {dw}, obj {obj_rel}")
+    # a traced synchronous block: each phase's device ms a round (the
+    # selects of the round protocol lie outside every phase; "all" is
+    # every kernel of the block's rounds and its one metric evaluation)
+    logdir = ROOT / "build" / "federated_trace"
+    block = FederatedConfig(num_rounds=me, rho=1.9, metric_every=me,
+                            compute_diagnostics=False)
+    with obs.profile.trace(str(logdir)):
+        for _ in range(2):             # the second block is read
+            run_federated(big, block)
+        torch.cuda.synchronize()
+    phases = range_device_ms(str(logdir / "trace.json"), {
+        **{p: me for p in PHASES + ("mailbox_exchange_diff",)},
+        "solve_metrics": 1})
+    shutil.rmtree(logdir, ignore_errors=True)
+
+    partial = FederatedConfig(
+        num_rounds=rounds, rho=1.9, metric_every=me, seed=16,
+        participation=get_participation("bernoulli", p=0.5),
+        local_update=get_local_update("prox", num_steps=2),
+        compression="int8")
+    t1 = time.perf_counter()
+    engine.participation_schedule(partial, rounds, big.num_nodes)
+    schedule_s = time.perf_counter() - t1
+    part, part_s = timed(lambda: run_federated(big, partial))
+    g = big.graph
+    deg = {k: np.bincount(getattr(g, k).cpu().numpy(),
+                          minlength=big.num_nodes).astype(np.float64)
+           for k in ("src", "dst")}
+    up = (part.schedule.astype(np.float64) @ deg["dst"]).astype(np.float32)
+    down = (part.schedule.astype(np.float64) @ deg["src"]).astype(np.float32)
+    n = big.num_features
+    want = {"up_msgs": up, "up_bytes": up * np.float32(n + 4.0),
+            "down_msgs": down, "down_bytes": down * np.float32(4.0 * n)}
+    ledger_equal = {k: bool(np.array_equal(
+        getattr(part.ledger, k).cpu().numpy(), v)) for k, v in want.items()}
+    require(all(ledger_equal.values()),
+            f"1M ledger vs the schedule's recount: {ledger_equal}")
+
+    ckdir = ROOT / "build" / "federated_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    saves = []
+    real_save = engine._save_checkpoint
+
+    def save(*a, **kw):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        real_save(*a, **kw)
+        saves.append(time.perf_counter() - t1)
+
+    engine._save_checkpoint = save
+    try:
+        ck = partial.replace(checkpoint_dir=str(ckdir), checkpoint_every=100)
+        straight, straight_s = timed(lambda: run_federated(big, ck))
+        ck_bytes = sum(f.stat().st_size for f in ckdir.rglob("*")
+                       if f.is_file())
+        shutil.rmtree(ckdir)
+        run_federated(big, ck.replace(num_rounds=100))
+        resumed, resumed_s = timed(lambda: run_federated(
+            big, ck.replace(resume=True)))
+    finally:
+        engine._save_checkpoint = real_save
+        shutil.rmtree(ckdir, ignore_errors=True)
+    fields = ("up_msgs", "up_bytes", "down_msgs", "down_bytes")
+    bitwise = {
+        "resumed_vs_straight": all(
+            torch.equal(getattr(straight, k), getattr(resumed, k))
+            for k in ("w", "u", "objective"))
+        and all(torch.equal(getattr(straight.ledger, f),
+                            getattr(resumed.ledger, f)) for f in fields),
+        "checkpointed_vs_unchunked": bool(torch.equal(straight.w, part.w))}
+    emit({"phase": "federated_full_size",
+          "seconds": time.perf_counter() - t0, "nodes": big.num_nodes,
+          "edges": g.num_edges, "rounds": rounds, "metric_every": me,
+          "sync": {"seconds": sync_s, "rounds_per_s": rounds / sync_s,
+                   "dense_seconds": dense_s,
+                   "dense_iterations_per_s": rounds / dense_s,
+                   "max_abs_dw_vs_dense": dw,
+                   "objective_max_rel_vs_dense": obj_rel,
+                   "bit_identical": bool(torch.equal(sync.w, dense.w)),
+                   "launches": launches,
+                   "device_ms_per_round": {
+                       k: v[0] / me for k, v in phases.items()},
+                   "kernels_per_round": {
+                       k: v[1] / me for k, v in phases.items()}},
+          "partial": {"participation": "bernoulli 0.5", "compression": "int8",
+                      "local_update": "prox 2", "seconds": part_s,
+                      "rounds_per_s": rounds / part_s,
+                      "schedule_seconds": schedule_s,
+                      "ledger_equal_to_recount": ledger_equal,
+                      "comm": part.ledger.summary(),
+                      "objective_first_last": [
+                          float(part.objective[0]),
+                          float(part.objective[-1])]},
+          "checkpoint": {"every": 100, "straight_seconds": straight_s,
+                         "resumed_seconds": resumed_s,
+                         "save_seconds": saves, "bytes": ck_bytes,
+                         "bitwise": bitwise},
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    require(all(bitwise.values()), f"1M checkpoint resume: {bitwise}")
+    require(bool(torch.isfinite(part.w).all())
+            and float(part.objective[-1]) < float(part.objective[0]),
+            "1M partial run did not move the objective down")
+
+
 DATA_FIELDS = ("x", "y", "sample_mask", "labeled_mask")
 # the A/B instance's problems: loss -> (lambda, loss options)
 AB_PROBLEMS = {"squared": (1e-3, {}), "logistic": (1e-3, {}),
@@ -2082,6 +2478,8 @@ def main() -> int:
     phase_zoo(torch, dev)
     phase_tol(torch)
     phase_wide_features(torch, dev)
+    phase_lane_faults(torch, dev)
+    phase_federated_s5(torch, dev)
     # one full-size graph for every solve: the layout is planned once
     t0 = time.perf_counter()
     graph, data, w_true, assign = make_clustered(FULL_NODES, seed=0,
@@ -2089,7 +2487,11 @@ def main() -> int:
     others = loss_instances(graph, assign, seed=1)
     gen_s = time.perf_counter() - t0
     big = Problem.create(graph, data, 1e-3)
-    kernels = [phase_full_size(torch, dev, cfg, big, w_true, gen_s)]
+    entry, full_size_rate = phase_full_size(torch, dev, cfg, big, w_true,
+                                            gen_s)
+    kernels = [entry]
+    phase_obs_full_size(torch, cfg, big, w_true, full_size_rate)
+    phase_federated_full_size(torch, big, w_true)
     kernels += phase_full_size_variants(torch, dev, cfg, big, w_true, others)
     phase_full_size_tol(torch, cfg, big)
     kernels += phase_unfused_full_size(torch, dev, cfg, big, w_true)

@@ -1,6 +1,6 @@
 """Execution backends for the port's solver — thin drivers over the engine.
 
-Two registered backends run the canonical primal-dual iteration
+The ``dense`` and ``pallas`` backends run the canonical primal-dual iteration
 (:func:`repro_torch.engine.step.pd_step`, paper eqs. 14-15) and return
 one :class:`~repro_torch.api.problem.SolveResult`:
 
@@ -30,11 +30,14 @@ engines: a lambda path (one graph, one lambda per lane; the dense and
 unfused engines through ``_solve_dense_path``, the fused one through
 ``_solve_fused`` with ``lams``) and a batch of shape-matched problems
 (``solve_dense_batched``: graphs, data and lambdas per lane).  The
-kernels take the lane axis in one launch each.
+kernels take the lane axis in one launch each (the fused kernel in
+groups of at most ``kernels.pd_step.MAX_LANES`` lanes).
 
-The reference's ``sharded``, ``sharded_fused`` and ``federated``
-backends are not in the port yet: each raises ``NotImplementedError``
-naming the ``ROADMAP.md`` item that brings it.
+A third backend, ``federated``, runs the round-based message-passing
+runtime (``repro_torch.federated``) with ``SolverConfig.federated``'s
+policies.  The reference's ``sharded`` and ``sharded_fused`` backends
+are not in the port yet: each raises ``NotImplementedError`` naming the
+``ROADMAP.md`` item that brings it.
 """
 from __future__ import annotations
 
@@ -64,7 +67,6 @@ BACKENDS: dict[str, Callable] = {}
 _PENDING_BACKENDS = {
     "sharded": "ROADMAP.md Open items §1 item 9",
     "sharded_fused": "ROADMAP.md Open items §1 item 10",
-    "federated": "ROADMAP.md Open items §1 item 11",
 }
 
 
@@ -408,7 +410,8 @@ def _fused_window_cap() -> int:
 
 
 def _fused_window_fits(problem: Problem,
-                       config: SolverConfig | None = None) -> bool:
+                       config: SolverConfig | None = None, *,
+                       lanes: int = 1) -> bool:
     """Plan (or fetch) the graph's layout and check the window cap.
 
     The estimate is dtype-aware, as the reference's: the storage
@@ -416,10 +419,11 @@ def _fused_window_fits(problem: Problem,
     (``EdgeBlockLayout.window_bytes``) and feeds the block-size
     auto-tuner.  On the card the kernel must also take the problem, the
     counterpart of the TPU's VMEM cap: its register tiles go to
-    ``kernels.pd_step.MAX_FEATURES`` features, and one node's prox
-    parameters must fit its shared-memory staging
-    (``kernels.pd_step.stages_fit``: a logistic node with some ten
-    thousand samples does not).  Such a problem runs unfused.
+    ``kernels.pd_step.MAX_FEATURES`` features, and a launch's plan must
+    fit a block's shared memory (``kernels.pd_step.stages_fit``: a
+    logistic node with some ten thousand samples does not, and a launch
+    over ``lanes`` lanes takes one slot more a lane).  Such a problem
+    runs unfused.
     """
     num_samples = problem.data.x.shape[-2]
     try:
@@ -430,7 +434,7 @@ def _fused_window_fits(problem: Problem,
     if problem.device.type == "cuda" and (
             problem.num_features > pd_kernel.MAX_FEATURES
             or not pd_kernel.stages_fit(problem.loss, problem.num_features,
-                                        num_samples)):
+                                        num_samples, lanes)):
         return False
     itemsize = 4
     if config is not None:
@@ -442,11 +446,14 @@ def _fused_window_fits(problem: Problem,
                            itemsize=itemsize) <= cap
 
 
-def _should_fuse(problem: Problem, config: SolverConfig) -> bool:
-    """The one fused-dispatch gate."""
+def _should_fuse(problem: Problem, config: SolverConfig, *,
+                 lanes: int = 1) -> bool:
+    """The one fused-dispatch gate; ``lanes`` the lambdas of a path, of
+    which one launch takes at most ``kernels.pd_step.MAX_LANES``."""
     return (_fused_enabled(problem, config)
             and _fused_supported(problem, config)
-            and _fused_window_fits(problem, config))
+            and _fused_window_fits(problem, config,
+                                   lanes=min(lanes, pd_kernel.MAX_LANES)))
 
 
 def _fused_setup(graph, data, lam, w_true, *, loss, reg, layout,
@@ -514,23 +521,38 @@ def _fused_run_iters(lt, inc_e, inc_s, params_s, pkeys, tau_s, src2, dst2,
     With ``compute_residual`` each call also returns the f32 eq.-11
     residual the kernel accumulated: ``(state, residual)``.  ``active`` is
     the tol solve's stop word (see ``kernels.ref.fused_pd_step_ref``).
-    Lane-stacked stores (a lambda path) advance every lane in each call.
+    Lane-stacked stores (a lambda path) advance every lane in each call:
+    one launch for each group of at most ``kernels.pd_step.MAX_LANES``
+    lanes, in lane order.  Lanes are independent, so a lane's result does
+    not depend on its group.
     """
     bv, eb = lt.block_nodes, lt.block_edges
     kn, klo, khi = lt.kn, lt.klo, lt.khi
     nodes, edges = lt.num_blocks * bv, lt.num_blocks * eb
 
-    def run_iters(state, iters, active=None):
-        w_store, u_store = state
-        out = ops.pd_step(
+    def launch(w_store, u_store, la, iters, active):
+        return ops.pd_step(
             w_store, u_store, inc_e, inc_s, params_s, tau_s, src2, dst2,
-            sig2, la2, loss=loss, reg=reg, pkeys=pkeys, block_nodes=bv,
+            sig2, la, loss=loss, reg=reg, pkeys=pkeys, block_nodes=bv,
             block_edges=eb, kn=kn, klo=klo, khi=khi, rho=rho, iters=iters,
             compute_residual=compute_residual, active=active,
             out=(w_store[..., :nodes, :],
                  u_store[..., klo * eb:klo * eb + edges, :]),
             incidence=lt.compact)
-        return (state, out[2]) if compute_residual else state
+
+    def run_iters(state, iters, active=None):
+        w_store, u_store = state
+        if w_store.ndim == 2:
+            outs = [launch(w_store, u_store, la2, iters, active)]
+        else:
+            cap = pd_kernel.MAX_LANES
+            outs = [launch(w_store[g:g + cap], u_store[g:g + cap],
+                           la2[g:g + cap], iters, active)
+                    for g in range(0, w_store.shape[0], cap)]
+        if not compute_residual:
+            return state
+        res = [o[2] for o in outs]
+        return state, res[0] if w_store.ndim == 2 else torch.cat(res)
 
     return run_iters
 
@@ -931,3 +953,38 @@ def solve_pallas(problem: Problem, config: SolverConfig, *, w0=None,
     clip_fn, affine_fn = resolve_kernel_hooks(problem, config, True)
     return _solve_dense(problem, config, w0=w0, u0=u0, w_true=w_true,
                         clip_fn=clip_fn, affine_fn=affine_fn)
+
+
+# ---------------------------------------------------------------------------
+# Federated backend (the message-passing runtime, repro_torch.federated)
+# ---------------------------------------------------------------------------
+
+@register_backend("federated")
+def solve_federated(problem: Problem, config: SolverConfig, *, w0=None,
+                    u0=None, w_true=None) -> SolveResult:
+    """Run the federated message-passing runtime as a solver backend.
+
+    ``config.federated`` (a ``repro_torch.federated.FederatedConfig``)
+    carries the runtime policies — participation, local updates,
+    compression, checkpointing; this solver config's ``num_iters`` (as
+    rounds), ``rho``, ``metric_every``, ``tol``, and
+    ``compute_diagnostics`` override the loop shape so backends stay
+    comparable under one SolverConfig.  The default (``federated=None``)
+    is synchronous full participation — the dense oracle mode the
+    conformance suite locks down.
+    """
+    _storage_dtype(config, fused=False)
+    # local import: repro_torch.federated layers on this module
+    from repro_torch.federated import FederatedConfig, run_federated
+
+    fed = (config.federated if config.federated is not None
+           else FederatedConfig())
+    if not isinstance(fed, FederatedConfig):
+        raise TypeError("SolverConfig.federated must be a "
+                        f"repro_torch.federated.FederatedConfig, got {fed!r}")
+    fed = dataclasses.replace(
+        fed, num_rounds=config.num_iters, rho=config.rho,
+        metric_every=config.metric_every, tol=config.tol,
+        compute_diagnostics=config.compute_diagnostics)
+    return run_federated(problem, fed, w0=w0, u0=u0,
+                         w_true=w_true).to_solve_result()

@@ -90,9 +90,10 @@ class SolverConfig:
     (``continuation`` / ``warm_lam`` / ``warm_iters`` / ``final_iters``).
 
     Backend dispatch:
-      backend:     "dense" (Python loop over the dense executor) or
+      backend:     "dense" (Python loop over the dense executor),
                    "pallas" (the port's kernels; the name is the
-                   reference's).
+                   reference's) or "federated" (the round-based
+                   message-passing runtime, ``repro_torch.federated``).
       fused:       pallas only — run the fused primal-dual kernel over
                    the edge-blocked layout instead of the dense engine
                    with the ``tv_prox`` / ``batched_affine`` kernels
@@ -106,6 +107,14 @@ class SolverConfig:
                    affine primal update (dense/pallas backends; the
                    pallas backend fills unset hooks with the port's
                    kernels, and a set hook disables fusion).
+      federated:   federated-backend runtime knobs: a
+                   ``repro_torch.federated.FederatedConfig`` whose
+                   participation / local-update / compression /
+                   checkpoint policies are used as-is while this config's
+                   num_iters, rho, metric_every, tol and
+                   compute_diagnostics override the loop shape.  None
+                   runs the synchronous full-participation defaults (the
+                   dense oracle mode).
 
     Precision: ``dtype`` "float32" (default) or "bfloat16".  bf16 is a
     storage policy of the fused path: the state and the float prox
@@ -128,6 +137,7 @@ class SolverConfig:
     # backend dispatch
     backend: str = "dense"
     fused: bool | None = None
+    federated: Any = None
     # custom kernel hooks
     clip_fn: Any = dataclasses.field(default=None, compare=False,
                                      repr=False)

@@ -32,6 +32,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.api import backends
 from repro_torch.api.backends import (_batched_certificate, _Lanes,
                                       _lane_block_fn, _path_lanes,
@@ -53,31 +54,42 @@ class Solver:
 
     def run(self, problem: Problem, *, w0=None, u0=None,
             w_true=None) -> SolveResult:
-        """Solve ``problem`` per the config on the problem's device."""
+        """Solve ``problem`` per the config on the problem's device.
+
+        With telemetry on, counts ``repro_solves_total{backend}`` and
+        times the ``solver_run`` span (host wall time: on the card it
+        ends once the solve is enqueued, see ``obs.span``)."""
         cfg = self.config
         backend = get_backend(cfg.backend)
         if w_true is not None:
             w_true = w_true.to(problem.device)
-        if not cfg.continuation:
-            run_cfg = cfg.replace(
-                num_iters=_capped(cfg.num_iters, cfg.metric_every))
-            return backend(problem, run_cfg, w0=w0, u0=u0, w_true=w_true)
+        if obs.enabled():
+            obs.counter("repro_solves_total",
+                        help="solver runs by backend",
+                        backend=cfg.backend).inc()
+        with obs.span("solver_run", backend=cfg.backend):
+            if not cfg.continuation:
+                run_cfg = cfg.replace(
+                    num_iters=_capped(cfg.num_iters, cfg.metric_every))
+                return backend(problem, run_cfg, w0=w0, u0=u0,
+                               w_true=w_true)
 
-        warm_lam = (cfg.warm_lam if cfg.warm_lam is not None
-                    else _default_warm_lam(float(problem.lam)))
-        warm_cfg = cfg.replace(
-            continuation=False, compute_diagnostics=False,
-            record_residual=False,
-            num_iters=_capped(cfg.warm_iters, cfg.metric_every))
-        warm = backend(problem.with_lam(warm_lam), warm_cfg, w0=w0, u0=u0)
-        # re-project the warm duals onto the target feasible set
-        u_warm = problem.regularizer.project_dual(
-            warm.u, problem.graph, problem.lam)
-        final_cfg = cfg.replace(
-            continuation=False,
-            num_iters=_capped(cfg.final_iters, cfg.metric_every))
-        return backend(problem, final_cfg, w0=warm.w, u0=u_warm,
-                       w_true=w_true)
+            warm_lam = (cfg.warm_lam if cfg.warm_lam is not None
+                        else _default_warm_lam(float(problem.lam)))
+            warm_cfg = cfg.replace(
+                continuation=False, compute_diagnostics=False,
+                record_residual=False,
+                num_iters=_capped(cfg.warm_iters, cfg.metric_every))
+            warm = backend(problem.with_lam(warm_lam), warm_cfg, w0=w0,
+                           u0=u0)
+            # re-project the warm duals onto the target feasible set
+            u_warm = problem.regularizer.project_dual(
+                warm.u, problem.graph, problem.lam)
+            final_cfg = cfg.replace(
+                continuation=False,
+                num_iters=_capped(cfg.final_iters, cfg.metric_every))
+            return backend(problem, final_cfg, w0=warm.w, u0=u_warm,
+                           w_true=w_true)
 
 
 # ---------------------------------------------------------------------------
@@ -296,7 +308,8 @@ def solve_path(problem: Problem, lams, config: SolverConfig | None = None,
     u0_b = problem.regularizer.project_dual(
         warm.u.expand((len(lams),) + tuple(warm.u.shape)), problem.graph,
         lam_col)
-    if cfg.backend == "pallas" and backends._should_fuse(problem, cfg):
+    if cfg.backend == "pallas" and backends._should_fuse(
+            problem, cfg, lanes=len(lams)):
         # the fused kernel over every lambda lane at once
         return backends._solve_fused(problem, final_cfg, w0=warm.w,
                                      u0=u0_b, w_true=w_true, lams=lams)

@@ -36,20 +36,38 @@ extern "C" int fused_pd_step_launch(const repro_pd::PdArgs* args,
   return static_cast<int>(err);
 }
 
-// The shared memory a launch of loss `loss_kind` at n features and
-// num_samples samples a node stages for each node (*node_bytes), and the
-// most a block may stage (*limit).  A launch whose node passes the limit
-// is refused: the wrapper asks first, and so does the solver's fused
-// gate.  Returns a CUDA error code.
+// The shared memory a launch of loss `loss_kind` at n features,
+// num_samples samples a node and num_lanes lanes plans (*need: make_plan's
+// total, the one-lane or the lane instantiation's as the launch picks),
+// and the most a block may take (*limit).  A launch past the limit is
+// refused: the wrapper asks first, and so does the solver's fused gate.
+// Returns a CUDA error code.
 extern "C" int fused_pd_step_staging(int loss_kind, int n, int num_samples,
-                                     long long* node_bytes,
+                                     int num_lanes, long long* need,
                                      long long* limit) {
   using namespace repro_pd;
   if (loss_kind < kSquared || loss_kind > kLogistic || n < 1 ||
-      num_samples < 0)
+      num_samples < 0 || num_lanes < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  PdArgs a{};
+  a.n = n;
+  a.num_samples = num_samples;
+  a.num_lanes = num_lanes;
   Plan p;
-  *node_bytes = stage_layout(loss_kind, n, num_samples, p);
+  const bool multi = num_lanes > 1;
+  switch (loss_kind) {
+    case kSquared:
+      *need = multi ? make_plan<16, kSquared, true>(a, p)
+                    : make_plan<16, kSquared, false>(a, p);
+      break;
+    case kLasso:
+      *need = multi ? make_plan<16, kLasso, true>(a, p)
+                    : make_plan<16, kLasso, false>(a, p);
+      break;
+    default:
+      *need = multi ? make_plan<16, kLogistic, true>(a, p)
+                    : make_plan<16, kLogistic, false>(a, p);
+  }
   *limit = kSmemMax;
   return 0;
 }

@@ -816,7 +816,8 @@ inline bool aligned16(const void* q) {
 // words) and the D^T u row.  Returns the node's shared bytes: its slots
 // (an int4), its D^T u row and its parameter rows.  The one count of
 // them: make_plan sizes tiles with it, and the wrapper and the solver's
-// fused gate read it through fused_pd_step_staging (pd_step.cu).
+// fused gate read make_plan's total through fused_pd_step_staging
+// (pd_step.cu).
 inline long long stage_layout(int loss, int n, int ms, Plan& p) {
   p = Plan{};
   if (loss == kSquared) {
@@ -845,13 +846,15 @@ inline long long stage_layout(int loss, int n, int ms, Plan& p) {
 // the staged in-edge ids and the lanes' residual maxima.  The tile and
 // the gather's lanes come from the staged parameters and the mean degree
 // alone, never from the lane count, so each lane of a launch over lanes
-// sums in the order a one-lane launch does.  Returns the shared bytes, or
-// -1 when one node's parameters (or the lanes' slots) do not fit a
-// block's shared memory.
+// sums in the order a one-lane launch does.  Returns the shared bytes;
+// past kSmemMax the launch is refused.  The in-edge ids only fill what
+// is left of kSmemTarget, so whether a plan fits depends on the loss, n,
+// the samples a node and the lane count alone: fused_pd_step_staging
+// (pd_step.cu) asks this plan with no graph, for the wrapper and the
+// solver's fused gate.
 template <int MAXN, int LOSS, bool MULTI>
 long long make_plan(const PdArgs& a, Plan& p) {
   const long long node_bytes = stage_layout(LOSS, a.n, a.num_samples, p);
-  if (node_bytes > kSmemMax) return -1;
   p.tile = kMaxTile;
   while (p.tile > 1 && p.tile * node_bytes > kSmemTarget) p.tile >>= 1;
   p.doffset = 4 * p.tile;
@@ -893,7 +896,6 @@ long long make_plan(const PdArgs& a, Plan& p) {
     if (cap > room) cap = room > 0 ? room : 0;
     p.ids_cap = (int)cap;
     off += cap;
-    if (off * 4 > kSmemMax) return -1;
   }
   return off * 4;
 }
@@ -902,7 +904,7 @@ template <int MAXN, int LOSS, typename T, bool MULTI>
 cudaError_t launch(const PdArgs& args, cudaStream_t stream) {
   Plan plan;
   const long long smem = make_plan<MAXN, LOSS, MULTI>(args, plan);
-  if (smem < 0) return cudaErrorInvalidValue;
+  if (smem > kSmemMax) return cudaErrorInvalidValue;
   auto kernel = fused_pd_step_kernel<MAXN, LOSS, T, MULTI>;
   cudaError_t err;
   if (smem > kSmemDefault) {  // opt in past the default per-block limit

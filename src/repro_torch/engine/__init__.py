@@ -4,22 +4,27 @@
     :class:`GraphExecutor`, the eq.-11 :func:`certificate`, and the
     fixed-point :func:`pd_residual`,
   * :mod:`repro_torch.engine.executors` — the dense gather-sum (one
-    problem or lane-stacked) and the edge-blocked window executors,
+    problem or lane-stacked), the edge-blocked window and the federated
+    mailbox executors,
   * :mod:`repro_torch.engine.loop` — metric cadence, the device-resident
-    tol loop and its one fetch, iteration caps and continuation defaults.
+    tol loop and its one fetch, the host-side chunk driver, iteration
+    caps and continuation defaults.
 """
 from repro_torch.engine.executors import (BatchedDenseExecutor,
-                                          DenseExecutor, WindowExecutor)
-from repro_torch.engine.loop import (capped, default_warm_lam, device_fetch,
-                                     device_loop, iter_cap, scan_solve)
+                                          DenseExecutor, MailboxExecutor,
+                                          WindowExecutor)
+from repro_torch.engine.loop import (capped, chunk_bounds, concat_traces,
+                                     default_warm_lam, device_fetch,
+                                     device_loop, iter_cap, run_chunked,
+                                     scan_solve)
 from repro_torch.engine.step import (GraphExecutor, certificate,
                                      ensure_column, optimality_gap,
                                      pd_residual, pd_step)
 
 __all__ = [
     "BatchedDenseExecutor", "DenseExecutor", "GraphExecutor",
-    "WindowExecutor", "capped", "certificate", "default_warm_lam",
-    "device_fetch", "device_loop",
-    "ensure_column", "iter_cap", "optimality_gap", "pd_residual",
-    "pd_step", "scan_solve",
+    "MailboxExecutor", "WindowExecutor", "capped", "certificate",
+    "chunk_bounds", "concat_traces", "default_warm_lam", "device_fetch",
+    "device_loop", "ensure_column", "iter_cap", "optimality_gap",
+    "pd_residual", "pd_step", "run_chunked", "scan_solve",
 ]

@@ -6,7 +6,10 @@
     a lambda path on one graph, or a batch of graphs of one shape (the
     reference vmaps the dense executor),
   * :class:`WindowExecutor` — the windows of the edge-blocked layout
-    (the fused kernel's plain version, ``kernels.ref``).
+    (the fused kernel's plain version, ``kernels.ref``),
+  * :class:`MailboxExecutor` — the federated runtime's per-edge message
+    protocol: duals read through owner broadcasts, primal differences
+    through persistent (optionally compressed) mailboxes.
 
 Executors also stand in for the graph inside the regularizer resolvents:
 ``weights`` is the per-owned-edge A_e in the executor's own edge order.
@@ -14,12 +17,14 @@ Executors also stand in for the graph inside the regularizer resolvents:
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
 from repro_torch.core.graph import (batched_incidence_apply,
                                     batched_incidence_transpose_apply)
+from repro_torch.obs import profile as _prof
+from repro_torch.obs.profile import annotate as _scope
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,3 +123,53 @@ class WindowExecutor:
     def owned_duals(self, u: torch.Tensor) -> torch.Tensor:
         eb = self.block_edges
         return u[:, self.klo * eb:(self.klo + 1) * eb]
+
+
+class MailboxExecutor:
+    """Federated message-passing executor (one communication round).
+
+    Duals are gathered from owned rows plus the owner-broadcast mirrors
+    ``u_recv`` (stale while the owner sleeps); the edge difference runs
+    through the persistent primal mailboxes: active dst endpoints post a
+    (compressed) copy of their operand ``z`` up to the edge owner, and
+    the difference is formed against the mailbox content.  The refreshed
+    mailbox state is left on ``z_recv_new`` for the round protocol to
+    carry forward — an executor is built fresh each round.
+
+    The gather is :meth:`DenseExecutor.gather_duals`'s (the padded
+    table's gather and one einsum over it), with the owner-side select
+    in between, so a synchronous round sums in the dense step's order;
+    no op of a round accumulates with atomics, so a round is
+    deterministic on the card too.
+    """
+
+    def __init__(self, graph, u_recv, z_recv, pos_signs, active_dst,
+                 compress: Callable):
+        self.graph = graph
+        self.u_recv = u_recv
+        self.z_recv = z_recv
+        self.pos_signs = pos_signs          # (V, max_deg, 1) owner-side mask
+        self.active_dst = active_dst        # (E, 1) bool
+        self.compress = compress
+        self.z_recv_new = None
+
+    @property
+    def weights(self) -> torch.Tensor:
+        return self.graph.weights
+
+    def gather_duals(self, u: torch.Tensor) -> torch.Tensor:
+        g = self.graph
+        gathered = torch.where(self.pos_signs, u[g.inc_edges],
+                               self.u_recv[g.inc_edges])
+        return torch.einsum("vd,vdn->vn", g.inc_signs, gathered)
+
+    def edge_diff(self, z: torch.Tensor) -> torch.Tensor:
+        with _scope(_prof.PHASE_MAILBOX_DIFF):
+            g = self.graph
+            self.z_recv_new = torch.where(self.active_dst,
+                                          self.compress(z[g.dst]),
+                                          self.z_recv)
+            return z[g.src] - self.z_recv_new
+
+    def owned_duals(self, u: torch.Tensor) -> torch.Tensor:
+        return u

@@ -1,4 +1,4 @@
-"""The shared solve loop of the dense and fused engines.
+"""The shared solve loop of the dense, fused and federated engines.
 
   * **metric cadence** — :func:`scan_solve` records traces every
     ``metric_every`` iterations, with the reference's three block shapes
@@ -6,18 +6,26 @@
   * **device-resident early stopping** — :func:`device_loop` drives a
     ``SolverConfig.tol`` solve with its stopping test kept on the device
     (the reference runs a ``lax.while_loop``), and
-    :func:`device_fetch` is the one device->host transfer such a solve
-    makes,
+    :func:`device_fetch` (``repro_torch.obs.telemetry``, re-exported
+    here) is the one device->host transfer such a solve makes,
+  * **host-side chunks** — :func:`run_chunked` drives a solve as a loop
+    over chunks (the federated runtime's checkpoint schedule and its
+    per-chunk tol test),
   * **iteration caps and warm starts** — the ``REPRO_SOLVER_MAX_ITERS``
     env cap and the continuation warm-lambda default used by
     ``Solver.run``.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Callable
 
 import torch
+
+from repro_torch.obs import profile as _prof
+from repro_torch.obs.profile import annotate as _scope
+from repro_torch.obs.telemetry import device_fetch  # noqa: F401
 
 
 def iter_cap() -> int:
@@ -73,6 +81,12 @@ def scan_solve(run_block: Callable, metrics: Callable, state0, *,
     Returns ``(final_state, ys)`` with every ys leaf stacked to
     ``(num_iters // metric_every,)``, like ``jax.lax.scan``.
     """
+    inner_metrics = metrics
+
+    def metrics(state):
+        with _scope(_prof.PHASE_METRICS):
+            return inner_metrics(state)
+
     step = metric_every if multi_iter_block else 1
     lead = metric_every - (1 if residual_fn is not None else 0)
     state = state0
@@ -139,7 +153,8 @@ def device_loop(run_block: Callable, state0, *, num_iters: int,
     state, traces = state0, None
     for k in range(num_blocks):
         blocks.add_(active)
-        state, records, res = run_block(state, active)
+        with _scope(_prof.PHASE_METRIC_BLOCK):
+            state, records, res = run_block(state, active)
         if traces is None:
             traces = tuple(r.new_zeros((num_blocks,) + tuple(r.shape))
                            for r in records)
@@ -149,28 +164,64 @@ def device_loop(run_block: Callable, state0, *, num_iters: int,
     return state, traces, blocks * metric_every
 
 
-def device_fetch(t: torch.Tensor):
-    """The solver stack's one deliberate device->host transfer: a tol
-    solve's stopping iteration, as a Python int (a 0-d tensor), or a
-    lane sweep's facts as one numpy array (its block count and per-lane
-    stopping iterations, in one tensor).
+# ---------------------------------------------------------------------------
+# The host-side chunk driver (checkpoint schedules + federated stopping)
+# ---------------------------------------------------------------------------
 
-    Every tol solve routes its single fetch through here, and
-    ``device_fetch.calls`` counts them.  It is the one call of a solve
-    that may synchronize: under ``torch.cuda.set_sync_debug_mode`` it
-    lifts the mode for its own copy and restores it.
+def chunk_bounds(start: int, total: int, size: int) -> list[tuple[int, int]]:
+    """[(r0, r1), ...] covering [start, total) in chunks of ``size``."""
+    return [(r, min(r + size, total)) for r in range(start, total, size)]
+
+
+def concat_traces(parts: list):
+    """Concatenate per-chunk traces along their leading axis: tensors,
+    tuples of them and dataclasses of them (a ``CommLedger``), nested as
+    the reference's pytrees are."""
+    first = parts[0]
+    if isinstance(first, torch.Tensor):
+        return torch.cat(parts)
+    if dataclasses.is_dataclass(first):
+        return type(first)(*(concat_traces([getattr(p, f.name)
+                                            for p in parts])
+                             for f in dataclasses.fields(first)))
+    return tuple(concat_traces(list(col)) for col in zip(*parts))
+
+
+def run_chunked(run_chunk: Callable, state, *, total: int, start: int = 0,
+                chunk_size: int, tol: float | None = None,
+                on_chunk: Callable | None = None):
+    """Drive a solve as a host-side loop over identical chunks.
+
+    ``run_chunk(state, r0, r1) -> (state, traces, residual)`` advances
+    ``r1 - r0`` iterations and returns its traces (leading axis = records
+    in the chunk) plus the chunk's max per-iteration fixed-point residual
+    (or None when not tracked).  ``on_chunk(state, r1, parts)`` fires
+    after every chunk (checkpoint hook).  When ``tol`` is set, the loop
+    stops at the first chunk whose residual is <= tol — every backend
+    stops on the identical residual stream, so dense and federated_sync
+    stop at the same iteration.
+
+    Transfer contract, as the reference's: the per-chunk
+    ``float(residual)`` device sync is the price of host-side stopping
+    and is paid *only* when ``tol`` is set.  It is not a
+    :func:`device_fetch` (the reference does not count it either), so
+    the transfer counters read the same in both packages.
+
+    Returns ``(state, traces, iterations_run, stopped_early)``.
     """
-    device_fetch.calls += 1
-    if t.device.type != "cuda":
-        host = t.numpy()
-    else:
-        mode = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode(0)
-        try:
-            host = t.to("cpu").numpy()
-        finally:
-            torch.cuda.set_sync_debug_mode(mode)
-    return int(host) if t.ndim == 0 else host
-
-
-device_fetch.calls = 0
+    parts = []
+    iterations = start
+    stopped = False
+    for r0, r1 in chunk_bounds(start, total, chunk_size):
+        state, traces, residual = run_chunk(state, r0, r1)
+        parts.append(traces)
+        iterations = r1
+        if on_chunk is not None:
+            on_chunk(state, r1, parts)
+        if tol is None:
+            continue                    # residual stays on device
+        if residual is not None and float(residual) <= tol:
+            stopped = True
+            break
+    traces = concat_traces(parts) if parts else None
+    return state, traces, iterations, stopped

@@ -11,15 +11,19 @@ over a :class:`GraphExecutor`:
 
 plus the Krasnosel'skii-Mann relaxation folded in when ``rho != 1``.
 The dense backend runs it through ``executors.DenseExecutor`` (and over
-lanes, with one lambda per lane, ``executors.BatchedDenseExecutor``), and the
-fused kernel's plain version (``kernels.ref.fused_pd_step_ref``) runs it
-through ``executors.WindowExecutor``.
+lanes, with one lambda per lane, ``executors.BatchedDenseExecutor``), the
+fused kernel's plain version (``kernels.ref.fused_pd_step_ref``) through
+``executors.WindowExecutor``, and the federated runtime through
+``executors.MailboxExecutor``.
 """
 from __future__ import annotations
 
 from typing import Callable, Protocol, runtime_checkable
 
 import torch
+
+from repro_torch.obs import profile as _prof
+from repro_torch.obs.profile import annotate as _scope
 
 
 def ensure_column(x):
@@ -64,30 +68,43 @@ class GraphExecutor(Protocol):
 def pd_step(executor: GraphExecutor, prox: Callable, regularizer, lam,
             tau: torch.Tensor, sigma: torch.Tensor, w: torch.Tensor,
             u: torch.Tensor, *, rho: float = 1.0,
-            clip_fn: Callable | None = None):
+            clip_fn: Callable | None = None,
+            primal_update: Callable | None = None):
     """One primal-dual step — eqs. 14-15.
 
     primal (eq. 17):  w+ = PU(w - T D^T u)
     dual  (step 10):  u+ = prox_{sigma dg*}(u + Sigma D (2 w+ - w))
     KM relaxation:    x  <- x + rho (x+ - x)  (duals re-projected)
 
+    ``primal_update(prox, w, dtu, tau)`` overrides the one-prox primal
+    (the federated runtime plugs its local-update policy here);
     ``clip_fn`` routes the dual resolvent through a kernel; the
     relaxation's re-projection runs the plain clip, as in the reference.
-    Returns ``(w_new, u_new)`` with ``u_new`` over the executor's owned
-    edges.
+    Each primitive runs in its paper-phase range
+    (:mod:`repro_torch.obs.profile`, entered only while telemetry or a
+    profiler is on).  Returns ``(w_new, u_new)`` with ``u_new`` over the
+    executor's owned edges.
     """
     tau_c = _col(tau)
     sigma_c = _col(sigma)
-    dtu = executor.gather_duals(u)
-    w_new = prox(w - tau_c * dtu)
-    dw = executor.edge_diff(2.0 * w_new - w)
-    u_own = executor.owned_duals(u)
-    u_new = regularizer.dual_prox(u_own + sigma_c * dw, executor, lam,
-                                  sigma, clip_fn=clip_fn)
+    with _scope(_prof.PHASE_GATHER):
+        dtu = executor.gather_duals(u)
+    with _scope(_prof.PHASE_PRIMAL):
+        if primal_update is None:
+            w_new = prox(w - tau_c * dtu)
+        else:
+            w_new = primal_update(prox, w, dtu, tau)
+    with _scope(_prof.PHASE_EDGE_DIFF):
+        dw = executor.edge_diff(2.0 * w_new - w)
+    with _scope(_prof.PHASE_DUAL):
+        u_own = executor.owned_duals(u)
+        u_new = regularizer.dual_prox(u_own + sigma_c * dw, executor, lam,
+                                      sigma, clip_fn=clip_fn)
     if rho != 1.0:
-        w_new = w + rho * (w_new - w)
-        u_new = regularizer.project_dual(
-            u_own + rho * (u_new - u_own), executor, lam)
+        with _scope(_prof.PHASE_RELAX):
+            w_new = w + rho * (w_new - w)
+            u_new = regularizer.project_dual(
+                u_own + rho * (u_new - u_own), executor, lam)
     return w_new, u_new
 
 
@@ -98,12 +115,13 @@ def pd_residual(tau, sigma, w, u, w_new, u_new, *,
     so every backend computes the identical residual from identical
     iterates).  ``lanes``: the state carries a leading lane axis, and the
     residual is one per lane, (L,)."""
-    dw = torch.abs(w_new - w) / _col(tau)
-    du = torch.abs(u_new - u) / _col(sigma)
-    if lanes:
-        return torch.maximum(dw.flatten(1).amax(dim=1),
-                             du.flatten(1).amax(dim=1))
-    return torch.maximum(torch.max(dw), torch.max(du))
+    with _scope(_prof.PHASE_RESIDUAL):
+        dw = torch.abs(w_new - w) / _col(tau)
+        du = torch.abs(u_new - u) / _col(sigma)
+        if lanes:
+            return torch.maximum(dw.flatten(1).amax(dim=1),
+                                 du.flatten(1).amax(dim=1))
+        return torch.maximum(torch.max(dw), torch.max(du))
 
 
 def certificate(problem, w: torch.Tensor, u: torch.Tensor) -> dict:

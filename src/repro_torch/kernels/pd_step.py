@@ -12,9 +12,9 @@ how the design answers that.  It reads the layout's compact incidence
 (``EdgeBlockLayout.compact``, passed as ``incidence``), where its plain
 version, :func:`kernels.ref.fused_pd_step_ref`, reads the padded tables
 ``inc_edges`` / ``inc_signs``; the kernel takes no padded tables.  It
-stages each node's prox parameters in shared memory, so a node whose
-parameters pass a block's shared memory (:func:`staging_bytes`) is
-refused.
+stages each node's prox parameters in shared memory, so a launch whose
+plan passes a block's shared memory (:func:`staging_bytes`: a node's
+parameters, and over lanes one slot a lane) is refused.
 
 Build: ``kernels/_build.py`` compiles it with the port's other CUDA
 sources into one shared library on first use; nothing is built or loaded
@@ -28,7 +28,9 @@ reference gets that axis from ``jax.vmap``.
 This wrapper takes CUDA tensors only and raises on anything it does not
 take; ``kernels.ops.pd_step`` sends CPU tensors to the plain version.
 Its checks run before the device check, so the CPU tests reach them.
-``fused_pd_step.launches`` counts the launches,
+Each launch runs in one :mod:`repro_torch.obs.profile` range that names
+the step phases it fuses (``FUSED_STEP``), while telemetry or a profiler
+is on.  ``fused_pd_step.launches`` counts the launches,
 ``fused_pd_step.variant_launches`` counts them by ``"<loss>/<dtype>"``,
 and ``fused_pd_step.lane_launches`` counts those over more than one lane
 by the same key.
@@ -42,6 +44,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import check_tensor as _check
+from repro_torch.obs import profile as _prof
 
 MAX_FEATURES = 16          # the kernel's widest per-thread register tile
 MAX_LANES = 4096           # lanes of one launch (a shared float each)
@@ -94,31 +97,35 @@ def _param_shapes(kind: int, rows: int, n: int, params: tuple) -> list:
     return [col, col, (rows, ms), col, (rows, ms, n), (rows, ms)]
 
 
-def staging_bytes(kind: int, n: int, num_samples: int) -> tuple[int, int]:
-    """``(bytes, limit)``: the shared memory the kernel stages for each
-    node of a launch of loss kind ``kind`` (``_LOSSES``) at ``n``
-    features and ``num_samples`` samples a node, and the most a block may
-    stage.  The kernel's own count (``csrc/pd_step.cu:
+def staging_bytes(kind: int, n: int, num_samples: int,
+                  lanes: int = 1) -> tuple[int, int]:
+    """``(bytes, limit)``: the shared memory a launch of loss kind
+    ``kind`` (``_LOSSES``) at ``n`` features, ``num_samples`` samples a
+    node and ``lanes`` lanes plans for a block (the tile's staged prox
+    parameters, and over lanes their residual slots), and the most a
+    block may take.  The launch's own plan (``csrc/pd_step.cu:
     fused_pd_step_staging``); builds the library on first use."""
-    node, limit = ctypes.c_longlong(), ctypes.c_longlong()
+    need, limit = ctypes.c_longlong(), ctypes.c_longlong()
     err = _build.entry("fused_pd_step_staging",
-                       [_I32, _I32, _I32, ctypes.POINTER(ctypes.c_longlong),
+                       [_I32, _I32, _I32, _I32,
+                        ctypes.POINTER(ctypes.c_longlong),
                         ctypes.POINTER(ctypes.c_longlong)])(
-        kind, n, num_samples, ctypes.byref(node), ctypes.byref(limit))
+        kind, n, num_samples, lanes, ctypes.byref(need),
+        ctypes.byref(limit))
     if err != 0:
         raise RuntimeError(f"fused_pd_step_staging failed: CUDA error {err}")
-    return node.value, limit.value
+    return need.value, limit.value
 
 
-def stages_fit(loss, n: int, num_samples: int) -> bool:
-    """Whether a node of ``loss`` at ``n`` features and ``num_samples``
-    samples a node fits the kernel's shared-memory staging.  A loss the
-    kernel has no prox for is not refused here (the wrapper refuses
-    it)."""
+def stages_fit(loss, n: int, num_samples: int, lanes: int = 1) -> bool:
+    """Whether a launch of ``loss`` at ``n`` features, ``num_samples``
+    samples a node and ``lanes`` lanes fits the kernel's shared memory.
+    A loss the kernel has no prox for is not refused here (the wrapper
+    refuses it)."""
     name = getattr(loss, "name", None)
     if name not in _LOSSES:
         return True
-    need, limit = staging_bytes(_LOSSES[name][0], n, num_samples)
+    need, limit = staging_bytes(_LOSSES[name][0], n, num_samples, lanes)
     return need <= limit
 
 
@@ -249,12 +256,13 @@ def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
         raise ValueError(f"fused_pd_step launches on CUDA tensors; got "
                          f"{device} (kernels.ops.pd_step sends CPU tensors "
                          "to the plain version)")
-    need, limit = staging_bytes(kind, n, num_samples)
+    need, limit = staging_bytes(kind, n, num_samples, lanes or 1)
     if need > limit:
         raise NotImplementedError(
             f"the fused_pd_step kernel stages a node's prox parameters in "
             f"shared memory, at most {limit} bytes; {name} at n = {n}"
             + (f" with {num_samples} samples a node" if kind == 2 else "")
+            + (f" over {lanes} lanes" if lanes else "")
             + f" needs {need} (the solver runs such a problem unfused)")
 
     if out is None:
@@ -287,7 +295,7 @@ def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
         float(getattr(loss, "alpha", 0.0)), lanes or 1,
         *map(lane_stride, (w_store, u_store, w_new, u_new, *carry, la)))
     stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
+    with _prof.annotate(_prof.FUSED_STEP), torch.cuda.device(device):
         err = _build.entry("fused_pd_step_launch", _ARGTYPES)(
             ctypes.byref(args), stream)
     if err != 0:

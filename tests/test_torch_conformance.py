@@ -10,7 +10,13 @@ final ``w`` within 1e-4, objective trace within rtol 1e-4 / atol 1e-6
 (same iteration, another framework's summation order).  The unfused path
 must match the port's own dense solve within 1e-6 (on the CPU they differ
 only in the plain ops) and must really call ``ops.tv_prox`` on every TV
-scenario and ``ops.batched_affine`` on every squared-loss one.
+scenario and ``ops.batched_affine`` on every squared-loss one.  The
+``federated_sync`` column — the message-passing runtime in synchronous
+mode (``backend="federated"``: full participation, one local prox step,
+no compression) — is held to the reference's dense solve as the other
+paths are, and to the port's own dense solve within 1e-6 on ``w`` and
+rtol 1e-6 on the objective trace (the reference's ``federated_sync``
+bounds): it runs the dense iteration operation for operation.
 """
 import numpy as np
 import pytest
@@ -28,7 +34,8 @@ from repro_torch.scenarios import SCENARIOS, get_scenario    # noqa: E402
 CONF = dict(num_iters=200, rho=1.9)
 PATHS = {"dense": dict(backend="dense"),
          "pallas_unfused": dict(backend="pallas", fused=False),
-         "pallas_fused": dict(backend="pallas", fused=True)}
+         "pallas_fused": dict(backend="pallas", fused=True),
+         "federated_sync": dict(backend="federated")}
 GRAPH_FIELDS = ("src", "dst", "weights", "inc_edges", "inc_signs")
 DATA_FIELDS = ("x", "y", "sample_mask", "labeled_mask")
 
@@ -129,3 +136,16 @@ def test_unfused_path_calls_kernel_hooks_and_matches_dense(name,
                                rtol=0, atol=1e-6)
     np.testing.assert_allclose(unfused.objective.numpy(),
                                dense.objective.numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_federated_sync_matches_port_dense(name):
+    problem = port_instance(name).problem
+    dense = Solver(SolverConfig(**CONF, **PATHS["dense"])).run(problem)
+    fed = Solver(SolverConfig(**CONF, **PATHS["federated_sync"])).run(problem)
+    np.testing.assert_allclose(fed.w.numpy(), dense.w.numpy(), rtol=0,
+                               atol=1e-6)
+    np.testing.assert_allclose(fed.objective.numpy(),
+                               dense.objective.numpy(), rtol=1e-6)
+    E = problem.graph.num_edges
+    assert fed.diagnostics["comm"]["up_messages"] == CONF["num_iters"] * E

@@ -298,20 +298,21 @@ def test_plain_version_ignores_the_compact_tables():
 def cuda_gate(monkeypatch):
     """The fused gate decides as on the card (the problem it sees reports
     a CUDA device) while the solve runs on the CPU tensors; and
-    ``_solve_fused`` records the solves it takes."""
+    ``_solve_fused`` records the solves it takes (the lambdas of a
+    path's lanes, None for one problem)."""
     class OnCuda(Problem):
         device = property(lambda self: torch.device("cuda"))
 
     real_gate, real_fused = backends._should_fuse, backends._solve_fused
     fused = []
 
-    def gate(problem, config):
+    def gate(problem, config, **kw):
         fields = dataclasses.fields(problem)
         return real_gate(OnCuda(**{f.name: getattr(problem, f.name)
-                                   for f in fields}), config)
+                                   for f in fields}), config, **kw)
 
     def solve_fused(*a, **kw):
-        fused.append(a[0])
+        fused.append(kw.get("lams"))
         return real_fused(*a, **kw)
 
     monkeypatch.setattr(backends, "_should_fuse", gate)
@@ -330,15 +331,15 @@ def test_fused_gate_runs_unstageable_nodes_unfused(fits, cuda_gate,
     everywhere off that path."""
     asked = []
 
-    def staging(kind, n, num_samples):
-        asked.append((kind, n, num_samples))
+    def staging(kind, n, num_samples, lanes=1):
+        asked.append((kind, n, num_samples, lanes))
         return (1, 2) if fits else (3, 2)
 
     monkeypatch.setattr(pd_step, "staging_bytes", staging)
     problem = _many_samples(40, "cpu")
     cfg = SolverConfig(backend="pallas", num_iters=30)
     got = Solver(cfg).run(problem)
-    assert asked and asked[-1] == (2, 2, 40)
+    assert asked and asked[-1] == (2, 2, 40, 1)
     assert len(cuda_gate) == int(fits)
     want = Solver(cfg.replace(backend="dense")).run(problem)
     tol = 1e-4 if fits else 1e-6
@@ -407,6 +408,40 @@ def test_fused_gate_runs_wide_problems_unfused(cuda_gate, monkeypatch):
     monkeypatch.setattr(pd_step, "staging_bytes", lambda *_args: (1, 2))
     Solver(cfg).run(_wide_problem(16)[0])
     assert len(cuda_gate) == 1
+
+
+LANE_WINDOW_SAMPLES = 14523     # fits the kernel's plan as one lane, not six
+LANE_WINDOW_LAMS = np.geomspace(1e-1, 1e-3, 6).astype(np.float32)
+LANE_WINDOW_CONF = dict(backend="pallas", rho=1.9, warm_iters=30,
+                        final_iters=30, metric_every=10)
+
+
+def test_fused_gate_counts_a_paths_lanes(cuda_gate, monkeypatch):
+    """A node that fits the kernel's plan as one lane but not as six (a
+    slot more a lane; stubbed here by the lane count the gate asks
+    with): ``Solver`` fuses it, and ``solve_path`` over six lambdas asks
+    the plan at six lanes and runs the unfused lane path instead of the
+    fused lanes, within 1e-4 of the dense path."""
+    from repro_torch.api import solve_path
+
+    asked = []
+
+    def staging(kind, n, num_samples, lanes=1):
+        asked.append(lanes)
+        return (1, 2) if lanes == 1 else (3, 2)
+
+    monkeypatch.setattr(pd_step, "staging_bytes", staging)
+    problem = _many_samples(40, "cpu")
+    cfg = SolverConfig(**LANE_WINDOW_CONF)
+    Solver(cfg.replace(num_iters=30)).run(problem)
+    assert cuda_gate == [None]
+    got = solve_path(problem, LANE_WINDOW_LAMS, cfg)
+    assert len(LANE_WINDOW_LAMS) in asked
+    assert cuda_gate == [None, None]        # the warm solve alone fused
+    want = solve_path(problem, LANE_WINDOW_LAMS,
+                      cfg.replace(backend="dense"))
+    np.testing.assert_allclose(got.w.numpy(), want.w.numpy(), rtol=0,
+                               atol=1e-4)
 
 
 def _need_card():
@@ -499,3 +534,28 @@ def test_cuda_solver_runs_many_samples_unfused():
     want = Solver(cfg.replace(backend="dense")).run(problem)
     np.testing.assert_allclose(got.w.cpu().numpy(), want.w.cpu().numpy(),
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_path_past_the_lane_plan_runs_unfused():
+    """Logistic nodes of 14,523 samples fit the kernel's plan as one lane
+    and not as six: ``solve_path`` over six lambdas solves on the card
+    (the unfused lanes), within 1e-4 of the dense path."""
+    _need_card()
+    from repro_torch.api import solve_path
+    from repro_torch.kernels.tv_prox import tv_prox
+
+    problem = _many_samples(LANE_WINDOW_SAMPLES, "cuda")
+    loss = problem.loss
+    assert pd_step.stages_fit(loss, 2, LANE_WINDOW_SAMPLES)
+    assert not pd_step.stages_fit(loss, 2, LANE_WINDOW_SAMPLES, 6)
+    cfg = SolverConfig(**LANE_WINDOW_CONF)
+    lanes = dict(fused_pd_step.lane_launches)
+    clips = tv_prox.launches
+    got = solve_path(problem, LANE_WINDOW_LAMS, cfg)
+    torch.cuda.synchronize()
+    assert dict(fused_pd_step.lane_launches) == lanes
+    assert tv_prox.launches > clips
+    want = solve_path(problem, LANE_WINDOW_LAMS, cfg.replace(backend="dense"))
+    np.testing.assert_allclose(got.w.cpu().numpy(), want.w.cpu().numpy(),
+                               rtol=0, atol=1e-4)

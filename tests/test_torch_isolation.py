@@ -101,6 +101,6 @@ def test_unported_solver_options_raise(cpu_problem, overrides, backend):
 
 
 def test_unported_paths_raise(cpu_problem):
-    for name in ("sharded", "sharded_fused", "federated"):
+    for name in ("sharded", "sharded_fused"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_backend(name)

@@ -382,6 +382,27 @@ def test_fused_path_launches_once_per_step_for_every_lane(lane_calls):
     assert lanes.count(1) == cfg.warm_iters // 10
 
 
+def test_fused_path_launches_lane_groups_in_order(lane_calls, monkeypatch):
+    """More lambdas than one launch takes (``MAX_LANES``, patched to 2
+    here): each step launches the lanes in groups of at most two, every
+    group in lane order, and the path equals the one launched whole,
+    bit for bit (lanes are independent)."""
+    from repro_torch.kernels import pd_step
+
+    cfg = SolverConfig(**PATH_BASE, **PATHS["pallas_fused"])
+    problem, w_true = _port(1e-3)
+    lams = (1e-3, 2e-3, 3e-3, 5e-3, 1e-2)
+    whole = solve_path(problem, lams, cfg, w_true=w_true)
+    lane_calls.clear()
+    monkeypatch.setattr(pd_step, "MAX_LANES", 2)
+    got = solve_path(problem, lams, cfg, w_true=w_true)
+    lanes = [l for n, l in lane_calls if n == "pd_step"]
+    steps = cfg.final_iters // 10
+    assert lanes[-3 * steps:] == [2, 2, 1] * steps
+    for name in ("w", "u", "objective", "mse"):
+        assert torch.equal(getattr(got, name), getattr(whole, name)), name
+
+
 @pytest.mark.parametrize("path", ["dense", "pallas_unfused"])
 def test_tol_sweep_matches_reference(path):
     """The masked sweep (cascade, then every lane stopping on its own

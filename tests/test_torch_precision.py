@@ -143,7 +143,7 @@ def on_cuda(monkeypatch):
     monkeypatch.setattr(Problem, "device",
                         property(lambda self: torch.device("cuda")))
     monkeypatch.setattr(pd_step, "staging_bytes",
-                        lambda kind, n, num_samples: (0, 1))
+                        lambda kind, n, num_samples, lanes=1: (0, 1))
 
 
 @pytest.mark.parametrize("name", ["sbm_regression", "sparse_lasso",
