@@ -33,7 +33,20 @@ mode against the dense backend on §5 and the zoo (``federated_s5``) and
 at full size with partial participation, int8 messages, its ledger and a
 checkpointed resume (``federated_full_size``), and telemetry at full size
 (``obs_full_size``: the fused solve with telemetry off and on, and a
-traced dense block's device time by Algorithm 1 phase).
+traced dense block's device time by Algorithm 1 phase).  Then the tol
+engines that stop computing at the stop (``tol_engine``: each engine's
+CUDA graph under an IF node against its plain loop, bit for bit, on §5
+and at full size; a dense full-size tol solve at budget B and 4B) and
+the solve service (``serving_s5``: dense and fused services on §5 and
+the serving tests' chains, each answer equal to ``Solver.run`` from the
+same state; ``serving_full_size``: cold and warm requests at 1M, a
+second tenant's plan hit, plans saved and loaded into a restarted
+service that plans nothing, ``solve_batch`` of four sessions, a dense
+pair).
+Where a tol engine replays a captured block, the kernels it ran are
+counted on the card by the kernels themselves (``device_executions``):
+the wrappers' launch counters count only the launches made outside a
+capture.
 Each phase prints one JSON line with its seconds; any mismatch or error
 exits non-zero before the result.  The last three lines are the kernels'
 line, the card's name and power limit (``nvidia-smi``), and ``{"ok":
@@ -409,7 +422,8 @@ def step_cost(args, kw, loss) -> dict:
 
 
 def phase_build(torch) -> None:
-    """All kernel sources into one library, with ``-Xptxas -v``."""
+    """All kernel sources into one library, with ``-Xptxas -v`` (the
+    kernels, and ``graph_cond.cu``, the tol engines' IF node)."""
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -424,9 +438,10 @@ def phase_build(torch) -> None:
                            if "Compiling entry" in ln or "registers" in ln
                            or "spill" in ln]
                     for name, log in logs.items()}})
-    require(sorted(logs) == ["pd_step.cu", "pd_step_lasso.cu",
-                             "pd_step_logistic.cu", "ridge_prox.cu",
-                             "tv_prox.cu"], f"built sources {sorted(logs)}")
+    require(sorted(logs) == ["graph_cond.cu", "pd_step.cu",
+                             "pd_step_lasso.cu", "pd_step_logistic.cu",
+                             "ridge_prox.cu", "tv_prox.cu"],
+            f"built sources {sorted(logs)}")
 
 
 def box_draw(level, n: int, seed: int):
@@ -577,6 +592,28 @@ def read_launches() -> dict:
             "lanes": {"fused_pd_step": dict(fused_pd_step.lane_launches),
                       "tv_prox": dict(tv_prox.lane_launches),
                       "batched_affine": dict(batched_affine.lane_launches)}}
+
+
+#: the kernels whose runs on the card ``device_executions`` reads
+EXECUTED = ("fused_pd_step", "tv_prox", "batched_affine")
+
+
+@contextlib.contextmanager
+def device_executions(torch, into: dict):
+    """Count, per kernel, the times the card ran it inside the block,
+    into ``into``: each kernel adds one to its own device counter on
+    every run (``kernels/_build.py:executions``), so the count holds the
+    wrappers' launches and the kernels that replays of a tol engine's
+    captured block ran (the wrappers count only the former: a replay
+    launches the graph, not the kernel).  Zeroed before the block and
+    read after it, both outside it."""
+    from repro_torch.kernels import _build
+
+    torch.cuda.synchronize()
+    _build.reset_executions()
+    yield
+    torch.cuda.synchronize()
+    into.update({k: _build.executions(k) for k in EXECUTED})
 
 
 def compare(got, want) -> tuple[float, float]:
@@ -735,8 +772,11 @@ def phase_tol(torch) -> None:
         require(0 < row["iterations"] < cfg.num_iters,
                 f"tol {name} did not stop: {row}")
         rows[name], results[name] = row, result
-    require(rows["fused"]["launches"]["fused_pd_step"]
-            == cfg.num_iters // cfg.metric_every,
+    # no block runs after the stop: the wrapper launches block 0, the
+    # graph's replays run the kernel once a block up to the stop
+    require(rows["fused"]["launches"]["fused_pd_step"] == 1
+            and rows["fused"]["device_executions"]["fused_pd_step"]
+            == rows["fused"]["iterations"] // cfg.metric_every,
             f"tol fused launches {rows['fused']}")
     dw = max_diff(results["fused"].w, results["dense"].w)
     emit({"phase": "tol", "seconds": time.perf_counter() - t0,
@@ -751,8 +791,9 @@ def phase_tol(torch) -> None:
 
 def tol_solve(torch, problem, cfg) -> tuple[dict, object]:
     """One tol solve after a warm-up, timed, under sync debug mode
-    "error", with its fetch count and launches; then the same solve as
-    a fixed budget of its stopping iteration, timed."""
+    "error", with its fetch count, launches and the kernels' runs on the
+    card; then the same solve as a fixed budget of its stopping
+    iteration, timed."""
     from repro_torch.api import Solver
     from repro_torch.engine import device_fetch
 
@@ -760,14 +801,16 @@ def tol_solve(torch, problem, cfg) -> tuple[dict, object]:
     torch.cuda.synchronize()
     fetches = device_fetch.calls
     reset_launches()
-    t0 = time.perf_counter()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        result = Solver(cfg).run(problem)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    executions = {}
+    with device_executions(torch, executions):
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            result = Solver(cfg).run(problem)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = read_launches()
     fetched = device_fetch.calls - fetches
     it = result.diagnostics["iterations"]
@@ -785,7 +828,271 @@ def tol_solve(torch, problem, cfg) -> tuple[dict, object]:
             "seconds_cut_at_stop": cut_s,
             "seconds_after_stop": wall - cut_s,
             "blocks_after_stop": blocks - it // cfg.metric_every,
-            "launches": launches}, result
+            "launches": launches, "device_executions": executions}, result
+
+
+@contextlib.contextmanager
+def plain_tol_engine():
+    """Run every tol engine on its plain version
+    (``engine.loop.device_loop_plain``: every block of the budget
+    enqueued, the blocks after the stop computed and dropped), the
+    loop the earlier slices shipped."""
+    from repro_torch.api import backends, solver
+    from repro_torch.engine import loop
+    saved = backends.device_loop, solver.device_loop
+    backends.device_loop = solver.device_loop = loop.device_loop_plain
+    try:
+        yield
+    finally:
+        backends.device_loop, solver.device_loop = saved
+
+
+def result_leaves(result) -> list:
+    """The tensors and stopping iterations of a result (or of a list of
+    them), for a bit-for-bit comparison."""
+    if isinstance(result, (list, tuple)):
+        return [x for r in result for x in result_leaves(r)]
+    its = result.diagnostics.get("iterations")
+    return [result.w, result.u, result.objective, result.mse,
+            result.residual, None if its is None else np.asarray(its)]
+
+
+def bit_identical(a, b) -> bool:
+    import torch
+    for x, y in zip(result_leaves(a), result_leaves(b), strict=True):
+        if isinstance(x, torch.Tensor):
+            if not (isinstance(y, torch.Tensor) and torch.equal(x, y)):
+                return False
+        elif isinstance(x, np.ndarray):
+            if not np.array_equal(x, y):
+                return False
+        elif x is not y:
+            return False
+    return True
+
+
+def engine_pair(torch, run, *, warm_up: bool = True) -> tuple[dict, object]:
+    """``run()`` (a tol solve) through the graph engine under sync debug
+    mode "error" — timed, its fetches, its kernels' launches and their
+    runs on the card (replays included) counted — and through the plain
+    loop, timed and counted; the two results compared bit for bit.
+    Returns ``(row, graph result)``."""
+    from repro_torch.engine import device_fetch
+
+    if warm_up:
+        run()                                 # handles, layouts, kernels
+    torch.cuda.synchronize()
+    fetches = device_fetch.calls
+    reset_launches()
+    executions = {}
+    with device_executions(torch, executions):
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    fetched = device_fetch.calls - fetches
+    launches = read_launches()
+    reset_launches()
+    with plain_tol_engine():
+        t0 = time.perf_counter()
+        plain = run()
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+    plain_launches = read_launches()
+    same = bit_identical(got, plain)
+    return {"seconds": wall, "plain_seconds": plain_wall,
+            "fetches": fetched, "bit_identical_to_plain": same,
+            "launches": launches, "device_executions": executions,
+            "plain_launches": plain_launches}, got
+
+
+def tol_engine_s5(torch) -> dict:
+    """``phase_tol_engine`` on the §5 instance: every tol engine against
+    its plain version, bit for bit, one fetch a solve (two for a path:
+    its warm solve's and the sweep's).  Returns the rows."""
+    from repro_torch.api import (Problem, Solver, SolverConfig, solve_many,
+                                 solve_path)
+    from repro_torch.data.synthetic import make_sbm_regression
+
+    ds = make_sbm_regression(seed=0)
+    s5 = Problem.create(ds.graph, ds.data, 1e-2)
+    cfg = SolverConfig(num_iters=4000, rho=1.9, metric_every=10, tol=5e-3,
+                       compute_diagnostics=False)
+    pallas = cfg.replace(backend="pallas", fused=False)
+    runs = {
+        "dense": lambda: Solver(cfg).run(s5),
+        "fused": lambda: Solver(cfg.replace(backend="pallas",
+                                            fused=True)).run(s5),
+        "batched": lambda: solve_many(
+            [s5, s5.with_lam(2e-2), s5.with_lam(5e-3)], pallas),
+        "masked": lambda: solve_path(
+            s5, (0.3, 0.003, 0.1, 0.03),
+            pallas.replace(warm_iters=3000, final_iters=2000))}
+    rows = {}
+    for name, run in runs.items():
+        row, got = engine_pair(torch, run)
+        its = (np.asarray(got.diagnostics["iterations"])
+               if not isinstance(got, list)
+               else got[0].diagnostics["iterations"])
+        row["iterations"] = np.asarray(its).tolist()
+        rows[f"s5_{name}"] = row
+        # a path's warm solve is a tol solve too: its fetch and the sweep's
+        want = 2 if name == "masked" else 1
+        require(row["fetches"] == want and row["bit_identical_to_plain"],
+                f"tol_engine §5 {name}: {row}")
+    # the wrapper launches block 0; the kernel runs once a block to the
+    # stop (the replays after it run nothing); the plain loop launches
+    # every block of the budget
+    blocks = rows["s5_fused"]["iterations"] // cfg.metric_every
+    require(rows["s5_fused"]["launches"]["fused_pd_step"] == 1
+            and rows["s5_fused"]["device_executions"]["fused_pd_step"]
+            == blocks
+            and rows["s5_fused"]["plain_launches"]["fused_pd_step"]
+            == cfg.num_iters // cfg.metric_every,
+            f"tol_engine §5 fused launches {rows['s5_fused']}")
+    # the batch: one tv_prox and one batched_affine a step to the stop
+    steps = rows["s5_batched"]["iterations"]
+    ex = rows["s5_batched"]["device_executions"]
+    require(ex["tv_prox"] == steps and ex["batched_affine"] == steps
+            and rows["s5_batched"]["launches"]["tv_prox"]
+            == cfg.metric_every, f"tol_engine §5 batched {rows['s5_batched']}")
+    return rows
+
+
+def phase_tol_engine(torch, big, full_tol: float) -> None:
+    """The tol engines that stop computing at the stop (ROADMAP §3 F3):
+    on the card a metric block is captured into a CUDA graph under an
+    IF node on the device flag and replayed over the budget.  Each
+    engine against its plain version (every block enqueued), bit for
+    bit — ``w``, ``u``, traces and stopping iterations — with one fetch
+    a solve under sync debug mode "error": the dense, fused, batched
+    (``solve_many``) and masked (``solve_path`` with tol) engines on the
+    §5 instance at lambda 1e-2 (``phase_tol``'s settings), and at full
+    size the dense, fused, batched and masked engines at cut budgets
+    (each tol from a probe of tol 0 that names the stopping block).
+    Then a dense full-size tol solve at budget B and 4B: equal results,
+    wall times within 10%."""
+    from repro_torch.api import (Solver, SolverConfig, backends, solve_many,
+                                 solver)
+
+    t0 = time.perf_counter()
+    rows = tol_engine_s5(torch)
+
+    # full size: cut budgets, each tol from a probe that never stops
+    me = 25
+    dense = SolverConfig(num_iters=1000, rho=1.9, metric_every=me,
+                         tol=0.0, compute_diagnostics=False)
+    probe = Solver(dense).run(big)
+    trace = probe.residual.cpu().numpy()
+    tol = float(trace[7])
+    expected = (int(np.argmax(trace <= tol)) + 1) * me
+    del probe
+    row, got = engine_pair(torch, lambda: Solver(dense.replace(tol=tol)).run(
+        big), warm_up=False)
+    row.update(tol=tol, iterations=got.diagnostics["iterations"],
+               expected_iterations=expected, budget=dense.num_iters)
+    rows["full_dense"] = row
+    require(row["fetches"] == 1 and row["bit_identical_to_plain"]
+            and row["iterations"] == expected,
+            f"tol_engine full-size dense {row}")
+    # budget B against 4B: the replays after the stop cost next to
+    # nothing, so the wall times agree within 10%
+    walls = {}
+    for budget in (dense.num_iters, 4 * dense.num_iters):
+        run_cfg = dense.replace(tol=tol, num_iters=budget)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        r = Solver(run_cfg).run(big)
+        torch.cuda.synchronize()
+        walls[budget] = (time.perf_counter() - t1, r)
+    (wb, rb), (w4, r4) = walls.values()
+    rows["full_dense_budgets"] = {
+        "budgets": list(walls), "seconds": [wb, w4],
+        "ratio_4b_over_b": w4 / wb,
+        "iterations": [rb.diagnostics["iterations"],
+                       r4.diagnostics["iterations"]],
+        "equal_results": bool(torch.equal(rb.w, r4.w)
+                              and torch.equal(rb.u, r4.u))}
+    del walls, rb, r4
+    require(rows["full_dense_budgets"]["equal_results"]
+            and abs(w4 / wb - 1.0) <= 0.10,
+            f"tol_engine budget B vs 4B {rows['full_dense_budgets']}")
+
+    fused = SolverConfig(backend="pallas", fused=True, num_iters=2000,
+                         rho=1.9, metric_every=100, tol=full_tol,
+                         compute_diagnostics=False)
+    row, got = engine_pair(torch, lambda: Solver(fused).run(big),
+                           warm_up=False)
+    row["iterations"] = got.diagnostics["iterations"]
+    rows["full_fused"] = row
+    require(row["fetches"] == 1 and row["bit_identical_to_plain"]
+            and row["launches"]["fused_pd_step"] == 1
+            and row["device_executions"]["fused_pd_step"]
+            == row["iterations"] // fused.metric_every,
+            f"tol_engine full-size fused {row}")
+
+    two = [big, big.with_lam(2e-3)]
+    batch = SolverConfig(backend="pallas", fused=False, num_iters=200,
+                         rho=1.9, metric_every=20, tol=0.0,
+                         record_residual=True, compute_diagnostics=False)
+    probe = solve_many(two, batch)
+    trace = torch.stack([r.residual for r in probe]).amax(0).cpu().numpy()
+    btol = float(trace[3])
+    del probe
+    row, got = engine_pair(torch, lambda: solve_many(two, batch.replace(
+        tol=btol)), warm_up=False)
+    row.update(tol=btol, iterations=got[0].diagnostics["iterations"],
+               budget=batch.num_iters)
+    rows["full_batched"] = row
+    require(row["fetches"] == 1 and row["bit_identical_to_plain"]
+            and row["iterations"] < batch.num_iters,
+            f"tol_engine full-size batched {row}")
+    del got
+
+    lams = np.asarray([1e-2, 1e-3], np.float32)
+    hooks = backends.resolve_kernel_hooks(big, batch, True)
+    params = big.loss.prox_setup(big.data, big.graph.primal_stepsizes())
+    V, n, E = big.num_nodes, big.num_features, big.graph.num_edges
+
+    def sweep(tol_):
+        out = solver._masked_sweep_impl(
+            big, lams, torch.zeros((2, V, n), device=big.device),
+            torch.zeros((2, E, n), device=big.device), None, params, tol_,
+            num_iters=batch.num_iters, rho=batch.rho,
+            metric_every=batch.metric_every, clip_fn=hooks[0],
+            affine_fn=hooks[1])
+        torch.cuda.synchronize()
+        return out
+
+    res0 = sweep(0.0)[2][2].cpu().numpy()          # (blocks, lanes)
+    mtol = float(res0[3].max())
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    g = sweep(mtol)
+    g_s = time.perf_counter() - t1
+    with plain_tol_engine():
+        t1 = time.perf_counter()
+        p = sweep(mtol)
+        p_s = time.perf_counter() - t1
+    nb = int(g[4])                                 # the blocks that ran
+    same = all(torch.equal(a, b) for a, b in
+               zip((g[0], g[1], *(t[:nb] for t in g[2]), g[3], g[4]),
+                   (p[0], p[1], *(t[:nb] for t in p[2]), p[3], p[4])))
+    rows["full_masked"] = {"tol": mtol, "lams": lams.tolist(),
+                           "iterations": g[3].cpu().tolist(),
+                           "blocks": nb, "seconds": g_s,
+                           "plain_seconds": p_s,
+                           "bit_identical_to_plain": same}
+    require(same and nb < batch.num_iters // batch.metric_every,
+            f"tol_engine full-size masked {rows['full_masked']}")
+    del g, p
+    torch.cuda.empty_cache()
+    emit({"phase": "tol_engine", "seconds": time.perf_counter() - t0,
+          **rows})
 
 
 def moving_state(torch, lt, n, la2, device, store):
@@ -955,7 +1262,8 @@ def phase_full_size(torch, dev, cfg, big, w_true, gen_s) -> tuple:
     """The scale-out topology at FULL_NODES through the fused path
     (squared loss, float32), the kernel alone and its plain version, a
     float64 yardstick and a profiled metric block.  Returns the kernel's
-    entry for the kernels' line and the solve's iterations/s."""
+    entry for the kernels' line, the solve's iterations/s and the
+    layout's planning seconds."""
     from repro_torch.api import backends
 
     row, entry = full_size_solve(torch, dev, cfg, big, w_true, drift=True,
@@ -964,7 +1272,7 @@ def phase_full_size(torch, dev, cfg, big, w_true, gen_s) -> tuple:
     emit({"phase": "full_size", "generate_seconds": gen_s,
           "compact_incidence_build_seconds": csr_s,
           "max_degree": big.graph.max_degree, **row})
-    return entry, row["iterations_per_s"]
+    return entry, row["iterations_per_s"], row["plan_seconds"]
 
 
 def phase_full_size_variants(torch, dev, cfg, big, w_true, others) -> list:
@@ -989,7 +1297,7 @@ def phase_full_size_variants(torch, dev, cfg, big, w_true, others) -> list:
     return entries
 
 
-def phase_full_size_tol(torch, cfg, big) -> None:
+def phase_full_size_tol(torch, cfg, big) -> float:
     """A fused tol solve at full size (squared, float32).  A first solve
     with tol 0 never stops and records every block's residual; tol is
     then set to the residual of block 10, so the tol solve must stop
@@ -1015,6 +1323,7 @@ def phase_full_size_tol(torch, cfg, big) -> None:
     require(row["iterations"] == expected,
             f"full-size tol stopped at {row['iterations']}, not {expected}")
     require(bool(torch.isfinite(result.w).all()), "full-size tol w")
+    return tol
 
 
 def phase_unfused_full_size(torch, dev, cfg, big, w_true) -> list:
@@ -1591,6 +1900,29 @@ def phase_path_tol_full_size(torch, dev, big) -> list:
            "residual_at_stop": [float(resid[k, iters[k] // me - 1])
                                 for k in range(len(lams))]}
     require(frozen, f"lane {lane} moved after its stop")
+    # the sweep's kernels' runs on the card, the graph's replays
+    # included: the sweep alone, counted in a second run (the count's
+    # waits would break the first's sync check); a lane launch of each
+    # a step, to the last lane's stop
+    sweep_ex = {}
+
+    def counted_sweep(*a, **kw):
+        with device_executions(torch, sweep_ex):
+            return real_sweep(*a, **kw)
+
+    real_sweep = solver._masked_sweep_impl
+    solver._masked_sweep_impl = counted_sweep
+    try:
+        again = solve_path(big, lams, cfg)
+    finally:
+        solver._masked_sweep_impl = real_sweep
+    steps = row["blocks"] * me
+    row.update(sweep_device_executions=sweep_ex, sweep_steps=steps)
+    require(torch.equal(again.w, res.w)
+            and sweep_ex["tv_prox"] == steps
+            and sweep_ex["batched_affine"] == steps,
+            f"path tol sweep executions {sweep_ex}, {steps} steps")
+    del again
     require(one.diagnostics["iterations"] == int(iters[lane])
             and dw_single <= SOLVE_TOL,
             f"lane {lane} against its single tol solve {row}")
@@ -1640,13 +1972,17 @@ def phase_path_tol_full_size(torch, dev, big) -> list:
     require(affine_err <= AFFINE_TOL,
             f"batched_affine lanes at full size |d| = {affine_err}")
     lane = launches["lanes"]
+    # launches: the wrappers' (the sweep's block 0); device_executions:
+    # the kernels' runs over the sweep, the graph's replays included
     return [dict(KERNELS["tv_prox[lanes]"],
                  launches=lane["tv_prox"].get("float32", 0),
+                 device_executions=sweep_ex["tv_prox"],
                  max_abs_err=tv_err, ms=tv["ms"], plain_ms=tv["plain_ms"],
                  bound_ms=tv["bound_ms"], bound_by=tv["bound_by"],
                  library_ms=tv["library_ms"]),
             dict(KERNELS["batched_affine[lanes,shared P]"],
                  launches=lane["batched_affine"].get("shared", 0),
+                 device_executions=sweep_ex["batched_affine"],
                  max_abs_err=affine_err, ms=affine["ms"],
                  plain_ms=affine["plain_ms"], bound_ms=affine["bound_ms"],
                  bound_by=affine["bound_by"],
@@ -1720,10 +2056,12 @@ def phase_many_full_size(torch, dev, graph, assign) -> list:
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         reset_launches()
-        t1 = time.perf_counter()
-        got = solve_many(problems, run_cfg)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t1
+        ran = {}
+        with device_executions(torch, ran):
+            t1 = time.perf_counter()
+            got = solve_many(problems, run_cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
         launches = read_launches()
         peak = torch.cuda.max_memory_allocated()
         t1 = time.perf_counter()
@@ -1771,12 +2109,16 @@ def phase_many_full_size(torch, dev, graph, assign) -> list:
                     f"solve_many tol vs sequential tol solves {row}")
         lanes = launches["lanes"]
         row["iterations_per_s_per_problem"] = its / wall
-        # a tol batch computes (and drops) its budget's blocks after the
-        # stop, as the dense tol engine does: every budget step launches
-        steps = run_cfg.num_iters
-        require(lanes["batched_affine"].get("per_lane", 0) == steps
-                and lanes["tv_prox"].get("float32", 0) == steps,
-                f"solve_many {label} launches {launches}, {steps} steps")
+        row["device_executions"] = ran
+        # a lane launch of each kernel a step (in a tol batch the
+        # wrappers launch block 0 and the graph's replays run the rest),
+        # none after a tol batch's stop
+        steps = its
+        require(ran["batched_affine"] == steps and ran["tv_prox"] == steps
+                and lanes["batched_affine"].get("per_lane", 0)
+                == (steps if run_cfg.tol is None else tol_cfg.metric_every),
+                f"solve_many {label} launches {launches}, ran {ran}, "
+                f"{steps} steps")
         rows[label] = row
     affine_launches = rows["fixed"]["launches"]["lanes"]["batched_affine"][
         "per_lane"]
@@ -1809,6 +2151,440 @@ def phase_many_full_size(torch, dev, graph, assign) -> list:
                  plain_ms=affine["plain_ms"], bound_ms=affine["bound_ms"],
                  bound_by=affine["bound_by"],
                  library_ms=affine["library_ms"])]
+
+
+def warm_start(problem, w, u):
+    """A warm start as the service makes it: copies of the cached state,
+    the duals re-projected onto the problem's lambda box."""
+    return w.clone(), problem.regularizer.project_dual(
+        u.clone(), problem.graph, problem.lam)
+
+
+def request(torch, fn, strict: bool = True) -> tuple[object, dict]:
+    """One service request under sync debug mode "error" (unless not
+    ``strict``: a plan miss of a fused service plans its layout on the
+    host): its answer, its host reads (the tol solve's ``device_fetch``
+    and the answer's read, ``_to_host``), the kernels' launches and their
+    runs on the card (the tol engine's replays included)."""
+    from repro_torch.engine import device_fetch
+    from repro_torch.serving.service import _to_host
+
+    torch.cuda.synchronize()
+    before = device_fetch.calls + _to_host.reads
+    reset_launches()
+    executions = {}
+    with device_executions(torch, executions):
+        torch.cuda.set_sync_debug_mode("error" if strict else 0)
+        try:
+            resp = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return resp, {"fetches": device_fetch.calls + _to_host.reads - before,
+                  "launches": read_launches(),
+                  "device_executions": executions}
+
+
+def response_row(resp, io: dict | None = None) -> dict:
+    row = {k: getattr(resp, k) for k in (
+        "iterations", "warm", "cache_hit", "compiled", "meets_sla",
+        "residual", "objective", "seconds", "solve_seconds",
+        "compile_seconds", "batch_width", "queue_wait")}
+    return {**row, **(io or {})}
+
+
+def certificate_cost(torch, dev) -> list:
+    """The optimality-gap certificate (``engine.step.optimality_gap``,
+    its pseudo-inverse ``sym_pinv``: Jacobi in tensor ops, 8 sweeps past
+    n = 2) timed on the card at n = 2 and n = 16 features: CUDA-event ms
+    and host wall ms a call, beside ``torch.linalg.pinv`` of the same
+    covariances (which checks its status on the host)."""
+    from repro_torch.api import Problem
+    from repro_torch.core.graph import chain_graph
+    from repro_torch.core.losses import NodeData
+    from repro_torch.engine.step import optimality_gap
+
+    rows = []
+    for v, n in ((1000, 2), (1000, 16), (100_000, 16)):
+        rng = np.random.default_rng(v + n)
+        x = rng.standard_normal((v, n + 4, n)).astype(np.float32)
+        y = rng.standard_normal((v, n + 4)).astype(np.float32)
+        problem = Problem.create(chain_graph(rng, v, device=dev), NodeData(
+            x=torch.from_numpy(x), y=torch.from_numpy(y),
+            sample_mask=torch.ones((v, n + 4)),
+            labeled_mask=torch.ones(v)).to(dev), lam=1e-2)
+        w = torch.randn((v, n), device=dev)
+        u = 0.01 * torch.randn((v - 1, n), device=dev)
+        q = torch.einsum("vmn,vmk->vnk", problem.data.x, problem.data.x)
+        optimality_gap(problem, w, u)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        optimality_gap(problem, w, u)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        rows.append({"nodes": v, "features": n,
+                     "ms": cuda_ms(lambda _: optimality_gap(problem, w, u),
+                                   reps=3),
+                     "wall_ms": wall * 1e3,
+                     "pinv_ms": cuda_ms(lambda _: torch.linalg.pinv(q),
+                                        reps=3)})
+        del problem, q, w, u
+    return rows
+
+
+def phase_serving_s5(torch, dev) -> None:
+    """The solve service (``repro_torch.serving``) on the card: a dense
+    ``DEFAULT_CONFIG`` service and a ``pallas`` ``fused=True`` one on the
+    §5 instance at lambda 1e-2.  Each answers a cold request, a warm one
+    after a ``DataDelta`` (a seeded 5% drift from ``synthetic_stream``),
+    a lambda retarget and an ``EdgePatch`` (the stream's churn: one edge
+    dropped, one added), each equal bit for bit to the port's own
+    ``Solver.run`` from the same state and meeting its SLA, with at most
+    two host reads a request under sync debug mode "error" (three for
+    a compiled one, whose solve runs twice for the compile split); then
+    ``solve_path`` (against ``api.solve_path``), and ``solve_batch`` and
+    a ``ServingQueue`` drain over four sessions of the serving tests'
+    chain problems (against ``solve_many``: the lane kernels on the
+    ``pallas`` service).  A fused service's plan misses (its cold and
+    patch requests) plan the structure's layout on the host, so they run
+    outside the sync check."""
+    import dataclasses
+
+    from repro_torch.api import Problem, Solver, solve_many, solve_path
+    from repro_torch.core.graph import chain_graph
+    from repro_torch.core.losses import NodeData
+    from repro_torch.core.partition import transfer_edge_duals
+    from repro_torch.data.synthetic import make_sbm_regression
+    from repro_torch.serving import (DEFAULT_CONFIG, ServingQueue,
+                                     SolveService, solve_batch,
+                                     synthetic_stream)
+    from repro_torch.serving.service import _apply_delta, _apply_patch
+
+    t0 = time.perf_counter()
+    ds = make_sbm_regression(seed=0)
+    s5 = Problem.create(ds.graph, ds.data, 1e-2)
+    drift, churn = synthetic_stream(np.random.default_rng(5), s5.data,
+                                    s5.graph, num_steps=2,
+                                    drift_fraction=0.05, drift_scale=0.1,
+                                    churn_every=2)
+
+    def chain(seed):
+        rng = np.random.default_rng(seed)
+        v = 24
+        w_true = np.where(np.arange(v)[:, None] < v // 2, 1.0, -1.0)
+        x = rng.standard_normal((v, 4, 2)).astype(np.float32)
+        y = np.einsum("vmn,vn->vm", x, np.broadcast_to(w_true, (v, 2)))
+        y = (y + 0.01 * rng.standard_normal(y.shape)).astype(np.float32)
+        return Problem.create(chain_graph(rng, v, device=dev), NodeData(
+            x=torch.from_numpy(x), y=torch.from_numpy(y),
+            sample_mask=torch.ones((v, 4)),
+            labeled_mask=torch.ones(v)).to(dev), lam=5e-2)
+
+    rows = {}
+    for name, cfg in (("dense", DEFAULT_CONFIG),
+                      ("fused", DEFAULT_CONFIG.replace(backend="pallas",
+                                                       fused=True))):
+        svc = SolveService(config=cfg)
+        sid = svc.create_session("t", s5)
+        solver = Solver(cfg)
+        answers, same = [], []
+        # a plan miss of the fused service plans its layout on the host:
+        # its cold and patch requests run outside the sync check
+        cold, io = request(torch, lambda: svc.solve(sid),
+                           strict=name == "dense")
+        same.append(torch.equal(cold.w, solver.run(s5).w))
+        answers.append(response_row(cold, io))
+        prev, problem = cold, s5
+        for step, update in (("delta", dict(delta=drift.delta)),
+                             ("lam", dict(lam=5e-3)),
+                             ("patch", dict(patch=churn.patch))):
+            u_prev = svc.session(sid).u
+            svc.update_session(sid, **update)
+            if step == "delta":
+                problem = dataclasses.replace(
+                    problem, data=_apply_delta(problem.data, drift.delta))
+            elif step == "lam":
+                problem = problem.with_lam(5e-3)
+            else:
+                graph = _apply_patch(problem.graph, churn.patch)
+                u_prev = torch.from_numpy(transfer_edge_duals(
+                    problem.graph, graph, u_prev)).to(dev)
+                problem = dataclasses.replace(problem, graph=graph)
+            resp, io = request(torch, lambda: svc.solve(sid),
+                               strict=not (step == "patch"
+                                           and name == "fused"))
+            w0, u0 = warm_start(problem, prev.w, u_prev)
+            same.append(torch.equal(resp.w, solver.run(problem, w0=w0,
+                                                       u0=u0).w))
+            answers.append(dict(response_row(resp, io), step=step))
+            prev = resp
+        lams = [2e-2, 1e-2, 5e-3]
+        path = svc.solve_path(sid, lams)
+        want = solve_path(problem, lams, cfg.replace(
+            tol=None, record_residual=True, continuation=False))
+        same.append(all(torch.equal(r.w, want.w[i])
+                        for i, r in enumerate(path)))
+        # four chain sessions: batched cold, then a queue's warm drain
+        chains = [chain(k) for k in range(4)]
+        sids = [svc.create_session(f"c{k % 2}", p)
+                for k, p in enumerate(chains)]
+        reset_launches()
+        batch = solve_batch(svc, sids)
+        torch.cuda.synchronize()
+        batch_launches = read_launches()
+        want = solve_many(chains, cfg)
+        same.append(all(torch.equal(r.w, m.w) for r, m in zip(batch, want)))
+        starts = [warm_start(p, svc.session(x).w, svc.session(x).u)
+                  for p, x in zip(chains, sids)]
+        q = ServingQueue(svc, max_batch=4, max_wait_requests=100)
+        tickets = [q.submit(x) for x in sids]
+        want = solve_many(chains, cfg, w0s=[w for w, _ in starts],
+                          u0s=[u for _, u in starts])
+        same.append(all(t.done and torch.equal(t.response.w, m.w)
+                        for t, m in zip(tickets, want)))
+        rows[name] = {
+            "requests": answers, "bit_identical_to_solver": same,
+            "path": [response_row(r) for r in path],
+            "batch": [response_row(r) for r in batch],
+            "batch_launches": batch_launches,
+            "queue": [response_row(t.response) for t in tickets],
+            "queue_stats": q.stats(), "summary": svc.summary()}
+        require(all(same), f"serving §5 {name}: answers differ from the "
+                f"solver {same}")
+        # a compiled request runs its solve twice (the compile split)
+        require(all(a["meets_sla"] and a["fetches"] <= 2 + a["compiled"]
+                    for a in answers), f"serving §5 {name}: {answers}")
+        require(answers[1]["warm"] and answers[1]["cache_hit"]
+                and answers[1]["iterations"] < answers[0]["iterations"],
+                f"serving §5 {name}: warm answer {answers[1]}")
+        require(all(r["meets_sla"] for r in rows[name]["batch"]
+                    + rows[name]["queue"]), f"serving §5 {name} batch")
+        if name == "fused":
+            # the wrapper launches block 0; the kernel runs once a block
+            # to the stop
+            ran = answers[1]["device_executions"]["fused_pd_step"]
+            require(not answers[1]["compiled"]
+                    and answers[1]["launches"]["fused_pd_step"] == 1
+                    and ran == answers[1]["iterations"] // cfg.metric_every,
+                    f"serving §5 fused warm launches {answers[1]}")
+            lanes = batch_launches["lanes"]
+            require(lanes["tv_prox"].get("float32", 0) > 0
+                    and lanes["batched_affine"].get("per_lane", 0) > 0,
+                    f"serving §5 solve_batch lane launches {batch_launches}")
+    cert = certificate_cost(torch, dev)
+    emit({"phase": "serving_s5", "seconds": time.perf_counter() - t0,
+          "certificate": cert,
+          "instance": "make_sbm_regression(seed=0), lam 1e-2; chains of 24",
+          "config": {"num_iters": DEFAULT_CONFIG.num_iters,
+                     "metric_every": DEFAULT_CONFIG.metric_every,
+                     "rho": DEFAULT_CONFIG.rho, "tol": DEFAULT_CONFIG.tol},
+          **rows})
+
+
+def phase_serving_full_size(torch, big, assign, full_tol: float,
+                            plan_seconds: float) -> None:
+    """The solve service at full size, on the shared 1M graph (layout
+    already planned): a fused squared service (``num_iters=6000``,
+    ``metric_every=25``, ``rho=1.9``, tol from ``full_size_tol``'s
+    probe). A cold request, then a warm one after a seeded 1% data-only
+    drift (``synthetic_stream``), each equal bit for bit to ``Solver.run``
+    from the same state, with two host reads under sync debug mode "error"
+    (three when compiled); a second tenant on the same structure, a plan
+    hit with no planning; ``save_plans``, a fresh service after clearing
+    the RCM memo, ``load_plans`` and its first answer on a new graph object
+    of the structure (no planning, equal to the first service's cold
+    answer); ``solve_batch`` of four warm sessions against
+    ``solve_many``; each request's kernel runs on the card counted,
+    the tol engine's replays included.  Then a dense service's cold and warm requests at a
+    budget cut to 2000 (``DEFAULT_CONFIG``'s 6000
+    would not change a stopped solve): the warm latency against its
+    stopping iterations x the dense step.  No edge patch: each re-plans
+    a 1M graph (~50 s)."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.api import Problem, Solver, backends, solve_many
+    from repro_torch.core import partition
+    from repro_torch.serving import (DEFAULT_CONFIG, SolveService,
+                                     solve_batch, synthetic_stream)
+    from repro_torch.serving.service import _apply_delta
+
+    t0 = time.perf_counter()
+    dev = big.device
+    cfg = DEFAULT_CONFIG.replace(backend="pallas", fused=True,
+                                 num_iters=6000, metric_every=25, rho=1.9,
+                                 tol=full_tol)
+    plans = []
+    real_plan = backends.plan_edge_blocks
+
+    def counted_plan(*a, **kw):
+        plans.append(1)
+        return real_plan(*a, **kw)
+
+    backends.plan_edge_blocks = counted_plan
+    rcm = []
+    real_rcm = partition.rcm_order
+
+    def counted_rcm(*a, **kw):
+        rcm.append(1)
+        return real_rcm(*a, **kw)
+
+    partition.rcm_order = counted_rcm
+    try:
+        svc = SolveService(config=cfg)
+        sid = svc.create_session("a", big)
+        cold, io = request(torch, lambda: svc.solve(sid))
+        solver = Solver(cfg)
+        same = {"cold": torch.equal(cold.w, solver.run(big).w)}
+        rows = {"cold": response_row(cold, io)}
+        t1 = time.perf_counter()
+        (ev,) = synthetic_stream(np.random.default_rng(11), big.data,
+                                 big.graph, num_steps=1,
+                                 drift_fraction=0.01, drift_scale=0.1)
+        rows["drift_seconds"] = time.perf_counter() - t1
+        u_cold = svc.session(sid).u
+        svc.update_session(sid, delta=ev.delta)
+        drifted = dataclasses.replace(big, data=_apply_delta(big.data,
+                                                             ev.delta))
+        warm, io = request(torch, lambda: svc.solve(sid))
+        w0, u0 = warm_start(drifted, cold.w, u_cold)
+        same["warm"] = torch.equal(warm.w, solver.run(drifted, w0=w0,
+                                                      u0=u0).w)
+        rows["warm"] = response_row(warm, io)
+        # a second tenant on the same structure: a plan hit, no planning
+        other = Problem.create(big.graph, cluster_data(assign, 21, dev),
+                               1e-3)
+        before = (len(plans), len(rcm), svc.plans.misses)
+        sid_b = svc.create_session("b", other)
+        second, io = request(torch, lambda: svc.solve(sid_b))
+        rows["second_tenant"] = dict(response_row(second, io),
+                                     plannings=len(plans) - before[0],
+                                     plan_misses=svc.plans.misses
+                                     - before[2])
+        # once a block to the stop, in each run (two when compiled)
+        require(io["device_executions"]["fused_pd_step"]
+                == (1 + second.compiled) * second.iterations
+                // cfg.metric_every,
+                f"serving 1M second tenant's kernels {io}")
+        require(second.cache_hit and len(plans) == before[0]
+                and len(rcm) == before[1]
+                and svc.plans.misses == before[2],
+                f"serving 1M second tenant planned {rows['second_tenant']}")
+        # persisted plans: a restarted service plans nothing
+        path = ROOT / "build" / "serving_plans"
+        shutil.rmtree(path, ignore_errors=True)
+        t1 = time.perf_counter()
+        saved = svc.save_plans(str(path))
+        save_s = time.perf_counter() - t1
+        # a restart: no RCM order in memory, a graph object of the
+        # structure that carries no layout and is in no layout cache
+        partition._RCM_CACHE.clear()
+        fresh = SolveService(config=cfg)
+        t1 = time.perf_counter()
+        loaded = fresh.load_plans(str(path))
+        load_s = time.perf_counter() - t1
+        restarted = Problem.create(dataclasses.replace(big.graph,
+                                                       layout=None),
+                                   big.data, 1e-3)
+        before = (len(plans), len(rcm))
+        t1 = time.perf_counter()
+        sid_r = fresh.create_session("a", restarted)
+        hash_s = time.perf_counter() - t1
+        first, io = request(torch, lambda: fresh.solve(sid_r))
+        same["restored"] = torch.equal(first.w, cold.w)
+        rows["restored"] = dict(
+            response_row(first, io), saved=saved, loaded=loaded,
+            save_seconds=save_s, load_plans_seconds=load_s,
+            structure_hash_seconds=hash_s,
+            planning_seconds_earlier=plan_seconds,
+            plannings=len(plans) - before[0],
+            rcm_orders=len(rcm) - before[1])
+        shutil.rmtree(path, ignore_errors=True)
+        require(first.cache_hit and first.compiled
+                and len(plans) == before[0] and len(rcm) == before[1],
+                f"serving 1M restored service planned {rows['restored']}")
+        del fresh, restarted
+        # four warm sessions, drifted, in one batched solve
+        sids = [sid, sid_b]
+        for k in range(2):
+            p = Problem.create(big.graph, cluster_data(assign, 31 + k, dev),
+                               1e-3)
+            sids.append(svc.create_session(f"c{k}", p))
+            svc.solve(sids[-1])
+        states = []
+        for k, s_ in enumerate(sids):
+            (ev_k,) = synthetic_stream(np.random.default_rng(40 + k),
+                                       svc.session(s_).problem.data,
+                                       big.graph, num_steps=1,
+                                       drift_fraction=0.01, drift_scale=0.1)
+            sess = svc.session(s_)
+            states.append((sess.w, sess.u))
+            svc.update_session(s_, delta=ev_k.delta)
+        problems = [svc.session(s_).problem for s_ in sids]
+        reset_launches()
+        batch_ex = {}
+        t1 = time.perf_counter()
+        with device_executions(torch, batch_ex):
+            batch = solve_batch(svc, sids)
+        batch_s = time.perf_counter() - t1
+        batch_launches = read_launches()
+        starts = [warm_start(p, w, u) for p, (w, u) in zip(problems,
+                                                            states)]
+        want = solve_many(problems, cfg, w0s=[w for w, _ in starts],
+                          u0s=[u for _, u in starts])
+        same["batch"] = all(torch.equal(r.w, m.w)
+                            for r, m in zip(batch, want))
+        rows["batch"] = {"answers": [response_row(r) for r in batch],
+                         "seconds": batch_s,
+                         "launches": batch_launches,
+                         "device_executions": batch_ex}
+        # a lane launch of each kernel a step, in each run of the batch
+        # (two when compiled: the split re-runs it)
+        runs = 2 if batch[0].compiled else 1
+        require(batch_ex["tv_prox"] == batch_ex["batched_affine"]
+                == runs * batch[0].iterations,
+                f"serving 1M solve_batch kernels {rows['batch']}")
+        del batch, want, starts, states, problems
+        for s_ in sids:
+            svc.close(s_)
+        rows["summary"] = svc.summary()
+        del svc
+        torch.cuda.empty_cache()
+        # a dense service's pair at a cut budget
+        dense_cfg = DEFAULT_CONFIG.replace(num_iters=2000, tol=full_tol)
+        dsvc = SolveService(config=dense_cfg)
+        dsid = dsvc.create_session("d", big)
+        dcold, io = request(torch, lambda: dsvc.solve(dsid))
+        rows["dense_cold"] = response_row(dcold, io)
+        u_cold = dsvc.session(dsid).u
+        dsvc.update_session(dsid, delta=ev.delta)
+        dwarm, io = request(torch, lambda: dsvc.solve(dsid))
+        w0, u0 = warm_start(drifted, dcold.w, u_cold)
+        same["dense_warm"] = torch.equal(
+            dwarm.w, Solver(dense_cfg).run(drifted, w0=w0, u0=u0).w)
+        step_ms = 1e3 * dcold.solve_seconds / max(dcold.iterations, 1)
+        rows["dense_warm"] = dict(
+            response_row(dwarm, io), budget=dense_cfg.num_iters,
+            budget_cut="2000 of DEFAULT_CONFIG's 6000",
+            dense_step_ms=step_ms,
+            iterations_x_step_seconds=dwarm.iterations * step_ms / 1e3)
+    finally:
+        backends.plan_edge_blocks = real_plan
+        partition.rcm_order = real_rcm
+    emit({"phase": "serving_full_size", "seconds": time.perf_counter() - t0,
+          "nodes": big.num_nodes, "edges": big.graph.num_edges,
+          "config": {"num_iters": cfg.num_iters,
+                     "metric_every": cfg.metric_every, "rho": cfg.rho,
+                     "tol": cfg.tol}, "bit_identical_to_solver": same,
+          **rows})
+    require(all(same.values()), f"serving 1M answers differ {same}")
+    answers = [rows[k] for k in ("cold", "warm", "second_tenant",
+                                 "restored", "dense_cold", "dense_warm")]
+    require(all(a["meets_sla"] and a["fetches"] <= 2 + a["compiled"]
+                for a in answers), f"serving 1M answers {answers}")
+    require(all(a["meets_sla"] for a in rows["batch"]["answers"]),
+            "serving 1M batch above tol")
+    require(rows["warm"]["warm"] and rows["warm"]["iterations"]
+            < rows["cold"]["iterations"], f"serving 1M warm {rows['warm']}")
 
 
 def phase_wide_features(torch, dev) -> None:
@@ -2480,6 +3256,7 @@ def main() -> int:
     phase_wide_features(torch, dev)
     phase_lane_faults(torch, dev)
     phase_federated_s5(torch, dev)
+    phase_serving_s5(torch, dev)
     # one full-size graph for every solve: the layout is planned once
     t0 = time.perf_counter()
     graph, data, w_true, assign = make_clustered(FULL_NODES, seed=0,
@@ -2487,13 +3264,15 @@ def main() -> int:
     others = loss_instances(graph, assign, seed=1)
     gen_s = time.perf_counter() - t0
     big = Problem.create(graph, data, 1e-3)
-    entry, full_size_rate = phase_full_size(torch, dev, cfg, big, w_true,
-                                            gen_s)
+    entry, full_size_rate, plan_s = phase_full_size(torch, dev, cfg, big,
+                                                    w_true, gen_s)
     kernels = [entry]
     phase_obs_full_size(torch, cfg, big, w_true, full_size_rate)
     phase_federated_full_size(torch, big, w_true)
     kernels += phase_full_size_variants(torch, dev, cfg, big, w_true, others)
-    phase_full_size_tol(torch, cfg, big)
+    full_tol = phase_full_size_tol(torch, cfg, big)
+    phase_tol_engine(torch, big, full_tol)
+    phase_serving_full_size(torch, big, assign, full_tol, plan_s)
     kernels += phase_unfused_full_size(torch, dev, cfg, big, w_true)
     kernels += phase_path_full_size(torch, dev, big, w_true, others)
     kernels += phase_path_tol_full_size(torch, dev, big)

@@ -253,10 +253,10 @@ def _dense_block_fn(problem: Problem, w_true, params, *, rho: float,
 
     ``params`` is the loss's prox parameters, set up once per solve by
     the caller (None falls back to ``make_prox``).  The dense step has
-    no stop word, so once ``active`` is clear the block still runs and
-    its result is dropped (``torch.where``): on the card a dense tol
-    solve computes its whole budget, where the reference's while loop
-    stops computing.
+    no stop word: where ``active`` is clear the block's result is
+    dropped (``torch.where``), which only the plain loop
+    (``engine.loop.device_loop_plain``) asks of it; ``device_loop``
+    runs no block after the stop.
     """
     graph, data, lam = problem.graph, problem.data, problem.lam
     loss, reg = problem.loss, problem.regularizer
@@ -867,9 +867,8 @@ def _batched_tol_impl(lanes: _Lanes, w0_b, u0_b, tol: float, *,
     every lane, stopping when the *max* residual over the batch is <= tol
     (batch-granular, as the reference: every problem runs the shared
     iteration count, so each certificate holds on its own).  As on the
-    dense path, the blocks after the stop are computed and dropped
-    (``torch.where`` on the stop word).  Returns ``(w, u, traces (T, L)
-    each, iterations)`` with ``iterations`` on the device."""
+    dense path, no block runs after the stop.  Returns ``(w, u, traces
+    (T, L) each, iterations)`` with ``iterations`` on the device."""
     advance = _lane_block_fn(lanes, rho=rho, metric_every=metric_every,
                              clip_fn=clip_fn, affine_fn=affine_fn)
 

@@ -15,12 +15,12 @@ and every kernel takes it in one launch).  ``REPRO_SOLVER_MAX_ITERS``
 Where the reference's device control flow has no PyTorch counterpart,
 the port follows ``engine/loop.py:device_loop``:
 
-  * the masked sweep's ``lax.while_loop`` enqueues every block of the
-    budget behind an "every lane done" device flag; each block selects
-    the old state of the done lanes with ``torch.where`` (so a frozen
-    lane stays bit-identical) and the blocks after the last lane's stop
-    are computed and dropped; one device->host fetch reads the block
-    count and the per-lane iterations;
+  * the masked sweep's ``lax.while_loop`` is ``device_loop`` on an
+    "every lane done" device flag (a CUDA graph with a conditional node
+    on the card): each block selects the old state of the done lanes
+    with ``torch.where`` (so a frozen lane stays bit-identical), and no
+    block runs after the last lane's stop; one device->host fetch reads
+    the block count and the per-lane iterations;
   * the cascade's ``lax.cond`` computes every lambda's block and selects
     on ``residual > trigger``, so it computes blocks the reference
     skips, without a host sync per lambda.
@@ -43,7 +43,7 @@ from repro_torch.api.problem import Problem, SolveResult, SolverConfig
 from repro_torch.engine import capped as _capped
 from repro_torch.engine import certificate
 from repro_torch.engine import default_warm_lam as _default_warm_lam
-from repro_torch.engine import device_fetch
+from repro_torch.engine import device_fetch, device_loop
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,11 +157,11 @@ def _masked_sweep_impl(problem: Problem, lams, w0_b, u0_b, w_true, params,
     single tol solve from the same init produces, and its stopping
     iteration (the first block whose block-max residual is <= tol) is
     the single solve's.  The reference's while loop exits when every
-    lane is done or the budget is spent; here every block of the budget
-    is enqueued behind the device flag "some lane runs", which counts
-    the blocks run on the device, and the blocks after the last stop
-    are computed and dropped.  Frozen lanes record residual 0 and their
-    frozen metrics.
+    lane is done or the budget is spent; here the blocks run under
+    ``engine.loop.device_loop`` on the flag "some lane runs", which
+    counts the blocks run on the device and runs none after the last
+    stop.  Frozen lanes record residual 0 and
+    their frozen metrics.
 
     Returns ``(w_b, u_b, (obj, mse, res) trace buffers (num_blocks, L),
     per-lane iterations (L,) int32, blocks run)``, the last two on the
@@ -170,32 +170,29 @@ def _masked_sweep_impl(problem: Problem, lams, w0_b, u0_b, w_true, params,
     advance, lane_metrics = _path_lane_fns(
         problem, lams, w_true, params, rho=rho, metric_every=metric_every,
         clip_fn=clip_fn, affine_fn=affine_fn)
-    num_blocks = num_iters // metric_every
     dev = problem.device
     done = torch.zeros((len(lams),), dtype=torch.bool, device=dev)
     iters = torch.zeros((len(lams),), dtype=torch.int32, device=dev)
-    running = torch.ones((), dtype=torch.bool, device=dev)
-    blocks = torch.zeros((), dtype=torch.int32, device=dev)
-    state, traces = (w0_b, u0_b), None
-    for k in range(num_blocks):
-        # block 0 runs unconditionally, as in every tol engine
-        blocks.add_(running)
-        new, res = advance(state)
+
+    def run_block(state, active):
+        del active           # done lanes freeze; so, once all are, does all
+        w, u, done, iters = state
+        new, res = advance((w, u))
         # converged lanes are frozen: select the old state on the mask
         frozen = done[:, None, None]
-        state = (torch.where(frozen, state[0], new[0]),
-                 torch.where(frozen, state[1], new[1]))
+        w = torch.where(frozen, w, new[0])
+        u = torch.where(frozen, u, new[1])
         iters = iters + torch.where(done, 0, metric_every).to(torch.int32)
         res = torch.where(done, torch.zeros_like(res), res)
         done = done | (res <= tol)
-        records = (*lane_metrics(state[0]), res)
-        if traces is None:
-            traces = tuple(r.new_zeros((num_blocks,) + tuple(r.shape))
-                           for r in records)
-        for buf, r in zip(traces, records):
-            buf[k] = r
-        running = ~torch.all(done)
-    return state[0], state[1], traces, iters, blocks
+        # the loop's stopping residual: above any tol while a lane runs
+        go = torch.where(torch.all(done), -torch.inf, torch.inf)
+        return (w, u, done, iters), (*lane_metrics(w), res), go
+
+    (w_b, u_b, _, iters), traces, its = device_loop(
+        run_block, (w0_b, u0_b, done, iters), num_iters=num_iters,
+        metric_every=metric_every, tol=tol)
+    return w_b, u_b, traces, iters, its // metric_every
 
 
 #: cascade trigger: a lambda inherits its neighbour's state untouched

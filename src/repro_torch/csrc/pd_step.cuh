@@ -63,6 +63,10 @@ struct PdArgs {
   long long wc_lane;       // w_carry
   long long uc_lane;       // u_carry
   long long la_lane;
+  // null, or the kernel's execution count: block 0 adds one each time the
+  // kernel runs its iterations, launched or replayed from a CUDA graph (a
+  // launch that finds the stop word clear writes and counts nothing)
+  unsigned long long* executions;
 };
 
 // One per loss, each defined in its own translation unit.

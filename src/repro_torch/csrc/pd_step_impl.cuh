@@ -91,11 +91,13 @@
 //     atomicMax per lane and block.  One lane runs the single-problem
 //     instantiation (MULTI false), unchanged.
 //
-// Stop word.  A tolerance solve enqueues every block of its budget and
-// keeps a device flag (`active`) that it clears once a block's residual
-// is <= tol.  Every thread reads the flag first and, when it is clear,
-// returns before the first grid sync: the launch writes nothing, so the
-// state stays exactly as it is and nothing is read back to the host.
+// Stop word.  A tolerance solve keeps a device flag (`active`) that it
+// clears once a block's residual is <= tol; its graph engine runs no
+// launch after that (engine/loop.py:device_loop), and its plain loop
+// enqueues every block of the budget.  Every thread reads the flag first
+// and, when it is clear, returns before the first grid sync: the launch
+// writes nothing, so the state stays exactly as it is and nothing is
+// read back to the host.
 // The residual is a per-thread max, a block max, then an atomicMax on the
 // float's bits (non-negative floats order like their bit patterns) into a
 // scalar the wrapper zeroes.
@@ -804,6 +806,10 @@ fused_pd_step_kernel(PdArgs a, Plan p) {
       }
     }
   }
+  // counted last, where the step's registers are free (the squared
+  // kernel runs under a register cap)
+  if (a.executions != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+    atomicAdd(a.executions, 1ULL);
 }
 
 inline bool aligned16(const void* q) {

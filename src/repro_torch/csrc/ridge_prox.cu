@@ -50,7 +50,10 @@ template <typename Idx, bool SHARED>
 __global__ void __launch_bounds__(kThreads)
 batched_affine_kernel(const float* __restrict__ p,
                       const float* __restrict__ v, float* __restrict__ out,
-                      Idx total, Idx n, Idx lane_elems) {
+                      Idx total, Idx n, Idx lane_elems,
+                      unsigned long long* executions) {
+  if (executions != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+    atomicAdd(executions, 1ULL);
   const Idx stride = (Idx)gridDim.x * blockDim.x;
   for (Idx i = (Idx)blockIdx.x * blockDim.x + threadIdx.x; i < total;
        i += stride) {
@@ -65,23 +68,28 @@ batched_affine_kernel(const float* __restrict__ p,
 
 template <typename Idx>
 void launch(const float* p, const float* v, float* out, Idx total, Idx n,
-            Idx lane_elems, bool shared, unsigned blocks, cudaStream_t s) {
+            Idx lane_elems, bool shared, unsigned long long* executions,
+            unsigned blocks, cudaStream_t s) {
   if (shared)
     batched_affine_kernel<Idx, true><<<blocks, kThreads, 0, s>>>(
-        p, v, out, total, n, lane_elems);
+        p, v, out, total, n, lane_elems, executions);
   else
     batched_affine_kernel<Idx, false><<<blocks, kThreads, 0, s>>>(
-        p, v, out, total, n, lane_elems);
+        p, v, out, total, n, lane_elems, executions);
 }
 
 }  // namespace
 
 // v and out (lanes, num_nodes, n); p (lanes, num_nodes, n, n) or, with
-// shared_p, (num_nodes, n, n) for every lane; float32.
+// shared_p, (num_nodes, n, n) for every lane; float32.  executions: null,
+// or the kernel's execution count (block 0 adds one each time the kernel
+// runs, launched or replayed from a CUDA graph).
 extern "C" int batched_affine_launch(const float* p, const float* v,
                                      float* out, long long lanes,
                                      long long num_nodes, int n,
-                                     int shared_p, void* stream) {
+                                     int shared_p,
+                                     unsigned long long* executions,
+                                     void* stream) {
   if (lanes <= 0 || num_nodes <= 0 || n <= 0)
     return static_cast<int>(cudaSuccess);
   int dev = 0, sms = 0;
@@ -100,11 +108,12 @@ extern "C" int batched_affine_launch(const float* p, const float* v,
   // p has up to total * n elements: the index type must hold that offset
   if (total * n < (1LL << 31))
     launch<unsigned>(p, v, out, (unsigned)total, (unsigned)n,
-                     (unsigned)lane_elems, shared, (unsigned)blocks, s);
+                     (unsigned)lane_elems, shared, executions,
+                     (unsigned)blocks, s);
   else
     launch<unsigned long long>(p, v, out, (unsigned long long)total,
                                (unsigned long long)n,
                                (unsigned long long)lane_elems, shared,
-                               (unsigned)blocks, s);
+                               executions, (unsigned)blocks, s);
   return static_cast<int>(cudaGetLastError());
 }

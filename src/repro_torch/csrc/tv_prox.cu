@@ -60,7 +60,10 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 template <typename T, typename Idx>
 __global__ void __launch_bounds__(kThreads)
 tv_prox_kernel(const T* __restrict__ u, const float* __restrict__ bound,
-               T* __restrict__ out, Idx total, Idx n) {
+               T* __restrict__ out, Idx total, Idx n,
+               unsigned long long* executions) {
+  if (executions != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+    atomicAdd(executions, 1ULL);
   const Idx stride = (Idx)gridDim.x * blockDim.x;
   for (Idx i = (Idx)blockIdx.x * blockDim.x + threadIdx.x; i < total;
        i += stride) {
@@ -71,22 +74,27 @@ tv_prox_kernel(const T* __restrict__ u, const float* __restrict__ bound,
 
 template <typename T>
 void launch(const void* u, const float* bound, void* out, long long total,
-            int n, unsigned blocks, cudaStream_t s) {
+            int n, unsigned long long* executions, unsigned blocks,
+            cudaStream_t s) {
   const T* ut = static_cast<const T*>(u);
   T* ot = static_cast<T*>(out);
   if (total < (1LL << 31))
     tv_prox_kernel<T, unsigned><<<blocks, kThreads, 0, s>>>(
-        ut, bound, ot, (unsigned)total, (unsigned)n);
+        ut, bound, ot, (unsigned)total, (unsigned)n, executions);
   else
     tv_prox_kernel<T, unsigned long long><<<blocks, kThreads, 0, s>>>(
-        ut, bound, ot, (unsigned long long)total, (unsigned long long)n);
+        ut, bound, ot, (unsigned long long)total, (unsigned long long)n,
+        executions);
 }
 
 }  // namespace
 
 // storage: 0 = float32, 1 = bfloat16 (u and out); bound is float32.
+// executions: null, or the kernel's execution count (block 0 adds one
+// each time the kernel runs, launched or replayed from a CUDA graph).
 extern "C" int tv_prox_launch(const void* u, const float* bound, void* out,
                               long long num_edges, int n, int storage,
+                              unsigned long long* executions,
                               void* stream) {
   if (num_edges <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
   int dev = 0, sms = 0;
@@ -100,9 +108,10 @@ extern "C" int tv_prox_launch(const void* u, const float* bound, void* out,
   if (blocks > cap) blocks = cap;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (storage == 0)
-    launch<float>(u, bound, out, total, n, (unsigned)blocks, s);
+    launch<float>(u, bound, out, total, n, executions, (unsigned)blocks, s);
   else if (storage == 1)
-    launch<__nv_bfloat16>(u, bound, out, total, n, (unsigned)blocks, s);
+    launch<__nv_bfloat16>(u, bound, out, total, n, executions,
+                          (unsigned)blocks, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

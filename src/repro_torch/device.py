@@ -1,4 +1,4 @@
-"""The port's one device rule.
+"""The port's one device rule, and the way its host code reads a tensor.
 
 Every entry point of :mod:`repro_torch` takes ``device=None``, and
 ``None`` means the CUDA card: the port exists to run on an NVIDIA GPU,
@@ -7,6 +7,7 @@ that want the CPU (the tests) ask for it with ``device="cpu"``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -26,3 +27,12 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def to_host(a) -> np.ndarray:
+    """A tensor (on any device) or array-like as a numpy array: the
+    host-side planners and the serving layer's host events read
+    tensors this way."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)

@@ -5,7 +5,9 @@
     (``repro.engine.loop.scan_solve``) as a Python loop,
   * **device-resident early stopping** — :func:`device_loop` drives a
     ``SolverConfig.tol`` solve with its stopping test kept on the device
-    (the reference runs a ``lax.while_loop``), and
+    and stops computing at the stop (the reference runs a
+    ``lax.while_loop``; on the card a CUDA graph with a conditional
+    node), :func:`device_loop_plain` is its plain version, and
     :func:`device_fetch` (``repro_torch.obs.telemetry``, re-exported
     here) is the one device->host transfer such a solve makes,
   * **host-side chunks** — :func:`run_chunked` drives a solve as a loop
@@ -124,44 +126,169 @@ def device_loop(run_block: Callable, state0, *, num_iters: int,
                 metric_every: int, tol: float):
     """Drive a tol solve with the stopping test on the device.
 
-    The reference runs its metric blocks in a ``lax.while_loop``; PyTorch
-    has no device-side loop the port can rely on, so this enqueues every
-    block of the budget and keeps a device flag ``active`` instead.
+    The reference runs its metric blocks in a ``lax.while_loop``.
     ``run_block(state, active) -> (state, records, residual)`` advances
-    ``metric_every`` iterations where ``active`` is set and leaves the
-    state exactly as it is where it is clear (the fused kernel reads the
-    flag and writes nothing; the dense block freezes its state with
-    ``torch.where``), and returns the block's records (a tuple of scalar
-    tensors) and its stopping residual (the max eq.-11 residual over the
-    block).  The flag is cleared on the device after the first block
-    whose residual is <= tol, so, as in the reference, block 0 always
-    runs and the solve stops after the first block at or below tol, or
-    at the end of the budget.
+    ``metric_every`` iterations and returns the block's records (a tuple
+    of scalar tensors, or one value per lane) and its stopping residual
+    (the max eq.-11 residual over the block); where the device flag
+    ``active`` is clear it must leave the state exactly as it is (the
+    fused kernel reads the flag and writes nothing; the dense blocks
+    select their old state with ``torch.where``).  The flag is cleared
+    on the device after the first block whose residual is <= tol, so,
+    as in the reference, block 0 always runs and the solve stops after
+    the first block at or below tol, or at the end of the budget.  The
+    blocks run are counted on the device.
+
+    The blocks after the stop are not computed:
+
+      * on the CPU the flag lives in host memory, so the loop reads it
+        (through a numpy view of the same bytes: no transfer, and no
+        read of a tensor) and ends at the stop;
+      * on the card block 0 runs as it is, and the block is then
+        captured once into a CUDA graph under an IF node on the flag
+        (:func:`_capture_block`, ``kernels/graph_if.py``), working in
+        place on the block's state and writing its records through the
+        device block count; the graph is replayed for the rest of the
+        budget, and a replay after the stop runs nothing on the device
+        but the node's flag test.  The block's profiler ranges
+        (``alg1_*``, ``solve_metric_block``) are recorded at the
+        capture; each replay is a ``solve_metric_block_replay`` range,
+        under which a trace shows the kernels it ran.
+
+    The kernels' launch counters count the launches of block 0 only: a
+    kernel call inside a capture is recorded, not launched, and the
+    replays launch the graph, not the kernel (each kernel counts its own
+    runs on the card, ``kernels._build.executions``).
 
     Trace buffers are preallocated at the full budget (``num_iters //
-    metric_every`` records) and written at the Python-int block index;
-    the blocks run are counted on the device.  Nothing here reads a
-    device value on the host: the caller's single :func:`device_fetch`
-    of the returned iteration count is the solve's one transfer, after
-    which it truncates the traces.  Returns ``(state, traces,
-    iterations)`` with ``iterations`` a device int32 scalar.
+    metric_every`` records).  Nothing here reads a device value on the
+    host: the caller's single :func:`device_fetch` of the returned
+    iteration count is the solve's one transfer, after which it
+    truncates the traces.  Returns
+    ``(state, traces, iterations)`` with ``iterations`` a device int32
+    scalar.  :func:`device_loop_plain` is the plain version: every
+    block enqueued, the blocks after the stop computed and dropped.
     """
+    if state0[0].device.type == "cuda":
+        return _graph_loop(run_block, state0, num_iters=num_iters,
+                           metric_every=metric_every, tol=tol)
+    return _host_loop(run_block, state0, num_iters=num_iters,
+                      metric_every=metric_every, tol=tol, stop=True)
+
+
+def device_loop_plain(run_block: Callable, state0, *, num_iters: int,
+                      metric_every: int, tol: float):
+    """The plain version of :func:`device_loop` on any device: every
+    block of the budget enqueued behind the flag, so the blocks after
+    the stop are computed and dropped.  The graph engine must give its
+    state, traces and stopping iteration bit for bit."""
+    return _host_loop(run_block, state0, num_iters=num_iters,
+                      metric_every=metric_every, tol=tol, stop=False)
+
+
+def _host_loop(run_block: Callable, state0, *, num_iters: int,
+               metric_every: int, tol: float, stop: bool):
+    """The block loop on the host: block ``k`` at the Python-int index,
+    ending at the stop when ``stop`` is set (a CPU flag only)."""
     num_blocks = num_iters // metric_every
     dev = state0[0].device
     active = torch.ones((), dtype=torch.bool, device=dev)
     blocks = torch.zeros((), dtype=torch.int32, device=dev)
+    # the flag's own bytes, seen from the host (CPU tensors only)
+    flag = active.numpy() if stop else None
     state, traces = state0, None
     for k in range(num_blocks):
+        if flag is not None and not flag[()]:
+            break
         blocks.add_(active)
         with _scope(_prof.PHASE_METRIC_BLOCK):
             state, records, res = run_block(state, active)
         if traces is None:
-            traces = tuple(r.new_zeros((num_blocks,) + tuple(r.shape))
-                           for r in records)
+            traces = _trace_buffers(records, num_blocks)
         for buf, r in zip(traces, records):
             buf[k] = r
         active.logical_and_(res > tol)
     return state, traces, blocks * metric_every
+
+
+def _trace_buffers(records: tuple, num_blocks: int) -> tuple:
+    return tuple(r.new_zeros((num_blocks,) + tuple(r.shape))
+                 for r in records)
+
+
+#: per device: the side stream every tol engine captures its block on,
+#: the memory pool the captures share (a solve's graph is never replayed
+#: after the next capture, so one pool serves them in turn), and the last
+#: IF graph, which holds its capture, and so the pool, until the next
+#: capture replaces it (its replays are then ordered before the capture)
+_CAPTURE_STREAMS: dict = {}
+
+
+def _graph_loop(run_block: Callable, state0, *, num_iters: int,
+                metric_every: int, tol: float):
+    """:func:`device_loop` on the card (see there)."""
+    num_blocks = num_iters // metric_every
+    dev = state0[0].device
+    active = torch.ones((), dtype=torch.bool, device=dev)
+    blocks = torch.ones((), dtype=torch.int32, device=dev)
+    # block 0 always runs: as it is, so every kernel and library handle
+    # the capture records is loaded first
+    with _scope(_prof.PHASE_METRIC_BLOCK):
+        state, records, res = run_block(state0, active)
+    # the graph writes its state in place: never a tensor of the caller
+    state = tuple(s.clone() if any(s is t for t in state0) else s
+                  for s in state)
+    traces = _trace_buffers(records, num_blocks)
+    for buf, r in zip(traces, records):
+        buf[0] = r
+    active.logical_and_(res > tol)
+    if num_blocks > 1:
+        graph = _capture_block(run_block, state, traces, active, blocks,
+                               tol)
+        for _ in range(num_blocks - 1):
+            with _scope(_prof.PHASE_METRIC_BLOCK_REPLAY):
+                graph.replay()
+    return state, traces, blocks * metric_every
+
+
+def _capture_block(run_block: Callable, state: tuple, traces: tuple,
+                   active, blocks, tol: float):
+    """Capture one metric block and put it under an IF node on
+    ``active`` (``kernels.graph_if.IfGraph``): the block on ``state``,
+    its new state copied back into ``state``, its records written at
+    index ``blocks`` of ``traces``, ``blocks`` counted and the flag
+    updated.  Nothing synchronizes: the capture runs on a side stream
+    that waits for the current one."""
+    from repro_torch.kernels.graph_if import IfGraph
+
+    dev = state[0].device
+    if dev not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[dev] = [torch.cuda.Stream(dev),
+                                 torch.cuda.graph_pool_handle(), None]
+    side, pool, _ = _CAPTURE_STREAMS[dev]
+    current = torch.cuda.current_stream(dev)
+    side.wait_stream(current)
+    body = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.stream(side):
+        body.capture_begin(pool=pool)
+        try:
+            with _scope(_prof.PHASE_METRIC_BLOCK):
+                new, records, res = run_block(state, active)
+            for s, n in zip(state, new):
+                s.copy_(n)
+            at = blocks.to(torch.int64).reshape(1)
+            for buf, r in zip(traces, records):
+                buf.index_copy_(0, at, r.unsqueeze(0))
+            blocks.add_(1)
+            active.logical_and_(res > tol)
+        finally:
+            body.capture_end()
+    current.wait_stream(side)
+    graph = IfGraph(body, active)
+    if _CAPTURE_STREAMS[dev][2] is not None:
+        _CAPTURE_STREAMS[dev][2].close()
+    _CAPTURE_STREAMS[dev][2] = graph
+    return graph
 
 
 # ---------------------------------------------------------------------------

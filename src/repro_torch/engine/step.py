@@ -18,6 +18,7 @@ fused kernel's plain version (``kernels.ref.fused_pd_step_ref``) through
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Protocol, runtime_checkable
 
 import torch
@@ -152,6 +153,86 @@ def certificate(problem, w: torch.Tensor, u: torch.Tensor) -> dict:
     return diag
 
 
+#: Jacobi sweeps of :func:`sym_pinv` past n = 2 (converged at the port's
+#: widths, n <= 16, in float32: ``tests/test_torch_certificate.py``)
+_JACOBI_SWEEPS = 8
+
+
+def _jacobi_plan(n: int, dtype, device) -> list:
+    """The rounds of disjoint (p, q) pairs, p < q, that cover every pair
+    once (the round-robin order: n - 1 rounds of n // 2 pairs, n rounds
+    for an odd n, one index resting in each), built on ``device`` with
+    no copy from the host.  Per round: the flat indices of its (p, q),
+    (p, p) and (q, q) entries, and the basis that turns its (c - 1, s)
+    into its rotation J - I (c at (p, p) and (q, q), s at (p, q), -s at
+    (q, p)) with one matrix product."""
+    m = n + n % 2                              # seats, one empty if odd
+    k = n // 2
+    rounds = torch.arange(m - 1, device=device)[:, None]
+    seat = torch.arange(m, device=device)[None, :]
+    # seat 0 stays, the others turn one place a round
+    at = torch.where(seat == 0, 0, 1 + (seat - 1 - rounds) % (m - 1))
+    half = torch.arange(m // 2, device=device)
+    p = torch.minimum(at[:, half], at[:, m - 1 - half])
+    q = torch.maximum(at[:, half], at[:, m - 1 - half])
+    if n % 2:                                  # drop the empty seat's pair
+        empty = 1 + (rounds - 1) % (m - 1)     # the seat of index n
+        skip = torch.minimum(empty, m - 1 - empty)
+        pair = torch.arange(k, device=device)[None, :]
+        keep = pair + (pair >= skip).to(pair.dtype)
+        p, q = p.gather(1, keep), q.gather(1, keep)
+    one = torch.ones(p.shape, dtype=dtype, device=device)
+    basis = torch.zeros((m - 1, 2 * k, n * n), dtype=dtype, device=device)
+    basis[:, :k].scatter_(2, torch.stack([p * n + p, q * n + q], -1),
+                          torch.stack([one, one], -1))
+    basis[:, k:].scatter_(2, torch.stack([p * n + q, q * n + p], -1),
+                          torch.stack([one, -one], -1))
+    flat = torch.cat([p * n + q, p * n + p, q * n + q], dim=1)
+    return [(flat[r], basis[r]) for r in range(m - 1)]
+
+
+def sym_pinv(a: torch.Tensor) -> torch.Tensor:
+    """Pseudo-inverse of a batch of symmetric matrices (..., n, n)
+    without a host synchronization: ``torch.linalg.pinv`` checks its
+    solver's status on the host (on the card, a transfer and a wait),
+    so the eigen-decomposition here is Jacobi in tensor ops over the
+    batch, each round rotating a set of disjoint (p, q) pairs at once
+    as one rotation J (A <- J^T A J, V <- V J: exact after one round at
+    n <= 2, converged to float resolution within ``_JACOBI_SWEEPS``
+    sweeps at the port's widths), with the eigenvalues below
+    ``10 * n * eps * max |lambda|`` cut as the reference's
+    ``jnp.linalg.pinv`` cuts singular values by default."""
+    n, batch = a.shape[-1], a.shape[:-2]
+    m = math.prod(batch)
+    a = a.reshape((m, n, n))
+    v = torch.eye(n, dtype=a.dtype, device=a.device).expand_as(a)
+    eye = torch.eye(n, dtype=a.dtype, device=a.device).reshape(1, n * n)
+    plan = _jacobi_plan(n, a.dtype, a.device)
+    for _ in range(_JACOBI_SWEEPS if n > 2 else 1):
+        for flat, basis in plan:
+            k = basis.shape[0] // 2
+            entries = a.reshape((m, n * n))[:, flat]
+            apq, app, aqq = (entries[:, :k], entries[:, k:2 * k],
+                             entries[:, 2 * k:])
+            theta = (aqq - app) / (2.0 * apq)
+            t = torch.sign(theta) / (torch.abs(theta)
+                                     + torch.sqrt(theta * theta + 1.0))
+            t = torch.where(apq == 0.0, torch.zeros_like(t),
+                            torch.where(theta == 0.0, torch.ones_like(t), t))
+            c = torch.rsqrt(t * t + 1.0)
+            rot = (torch.cat([c - 1.0, t * c], dim=1) @ basis
+                   + eye).reshape((m, n, n))
+            a = rot.transpose(1, 2) @ a @ rot
+            v = v @ rot
+    lam = torch.diagonal(a, dim1=-2, dim2=-1)
+    cut = (10.0 * n * torch.finfo(a.dtype).eps
+           * torch.amax(torch.abs(lam), dim=-1, keepdim=True))
+    inv = torch.where(torch.abs(lam) > cut, 1.0 / lam,
+                      torch.zeros_like(lam))
+    out = torch.einsum("...ik,...k,...jk->...ij", v, inv, v)
+    return out.reshape(batch + (n, n))
+
+
 def optimality_gap(problem, w: torch.Tensor, u: torch.Tensor
                    ) -> torch.Tensor:
     """True eq.-11 duality gap for squared loss + TV: ``P(w) - g(u)``.
@@ -162,7 +243,8 @@ def optimality_gap(problem, w: torch.Tensor, u: torch.Tensor
     the regularized normal equations via pinv with the first-order ball
     bound for null-space components; unlabeled nodes are exact:
     ``-R |z_i|``.  Weak duality makes the gap a certified upper bound on
-    ``P(w) - P*`` (see ``repro.engine.step.optimality_gap``).
+    ``P(w) - P*`` (see ``repro.engine.step.optimality_gap``).  The pinv
+    is :func:`sym_pinv`, so the certificate reads nothing on the host.
     """
     data = problem.data
     lam_a = (problem.lam * problem.graph.weights)[:, None]
@@ -176,7 +258,7 @@ def optimality_gap(problem, w: torch.Tensor, u: torch.Tensor
     radius = 2.0 * torch.max(torch.linalg.norm(w, dim=1)) + 1.0
 
     rhs = c - 0.5 * z
-    w_star = torch.einsum("vnk,vk->vn", torch.linalg.pinv(q), rhs)
+    w_star = torch.einsum("vnk,vk->vn", sym_pinv(q), rhs)
     lval = (torch.einsum("vn,vnk,vk->v", w_star, q, w_star)
             - 2.0 * torch.sum(c * w_star, dim=1) + yty)
     # grad of f(w) = ell(w) + z^T w at w*: 2 (Q w* - rhs)

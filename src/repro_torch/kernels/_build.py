@@ -122,6 +122,41 @@ def entry(name: str, argtypes: list) -> ctypes._CFuncPtr:
     return fn
 
 
+#: per (kernel, device): the device int64 that the kernel's block 0 adds
+#: one to each time the kernel runs, launched or replayed from a CUDA graph
+_EXECUTIONS: dict[tuple[str, torch.device], torch.Tensor] = {}
+
+
+def execution_counter(kernel: str, device: torch.device) -> int | None:
+    """The device address of ``kernel``'s execution count on ``device``,
+    made (zeroed) on first use; None inside a capture that would have to
+    make it (the kernel then counts nothing).  The wrappers pass it to
+    every launch."""
+    count = _EXECUTIONS.get((kernel, device))
+    if count is None:
+        if torch.cuda.is_current_stream_capturing():
+            return None
+        count = _EXECUTIONS[(kernel, device)] = torch.zeros(
+            1, dtype=torch.int64, device=device)
+    return count.data_ptr()
+
+
+def executions(kernel: str) -> int:
+    """How many times ``kernel`` ran on the card, on every device, since
+    :func:`reset_executions`: the launches and the kernels that replays
+    of a captured graph ran (a wrapper's ``launches`` counts only the
+    former).  Reads the device counts on the host, so it waits for the
+    card: for measurement, never on a solve's path."""
+    return sum(int(c.item()) for (k, _), c in _EXECUTIONS.items()
+               if k == kernel)
+
+
+def reset_executions() -> None:
+    """Zero every execution count (on its device's current stream)."""
+    for count in _EXECUTIONS.values():
+        count.zero_()
+
+
 def check_tensor(name: str, t: torch.Tensor, shape: tuple,
                  dtype: torch.dtype, device: torch.device) -> None:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on

@@ -33,7 +33,9 @@ the step phases it fuses (``FUSED_STEP``), while telemetry or a profiler
 is on.  ``fused_pd_step.launches`` counts the launches,
 ``fused_pd_step.variant_launches`` counts them by ``"<loss>/<dtype>"``,
 and ``fused_pd_step.lane_launches`` counts those over more than one lane
-by the same key.
+by the same key.  A call inside a CUDA-graph capture records the kernel
+and is not counted: the graph's replays run it.  The kernel counts its
+own runs on the card, replays included (``_build.executions``).
 """
 from __future__ import annotations
 
@@ -77,7 +79,7 @@ class _PdArgs(ctypes.Structure):
         ("num_inner", _I32), ("alpha", _F32),
         ("num_lanes", _I64), ("w_in_lane", _I64), ("u_in_lane", _I64),
         ("w_out_lane", _I64), ("u_out_lane", _I64), ("wc_lane", _I64),
-        ("uc_lane", _I64), ("la_lane", _I64),
+        ("uc_lane", _I64), ("la_lane", _I64), ("executions", _P),
     ]
 
 
@@ -293,18 +295,20 @@ def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
         int(compute_residual), kind, _STORAGE[store], num_samples,
         int(getattr(loss, "num_inner", 0)),
         float(getattr(loss, "alpha", 0.0)), lanes or 1,
-        *map(lane_stride, (w_store, u_store, w_new, u_new, *carry, la)))
+        *map(lane_stride, (w_store, u_store, w_new, u_new, *carry, la)),
+        _build.execution_counter("fused_pd_step", device))
     stream = torch.cuda.current_stream(device).cuda_stream
     with _prof.annotate(_prof.FUSED_STEP), torch.cuda.device(device):
         err = _build.entry("fused_pd_step_launch", _ARGTYPES)(
             ctypes.byref(args), stream)
     if err != 0:
         raise RuntimeError(f"fused_pd_step launch failed: CUDA error {err}")
-    variant = f"{name}/{str(store).removeprefix('torch.')}"
-    fused_pd_step.launches += 1
-    fused_pd_step.variant_launches[variant] += 1
-    if (lanes or 1) > 1:
-        fused_pd_step.lane_launches[variant] += 1
+    if not torch.cuda.is_current_stream_capturing():
+        variant = f"{name}/{str(store).removeprefix('torch.')}"
+        fused_pd_step.launches += 1
+        fused_pd_step.variant_launches[variant] += 1
+        if (lanes or 1) > 1:
+            fused_pd_step.lane_launches[variant] += 1
     if compute_residual:
         return w_new, u_new, res if lanes is not None else res[0]
     return w_new, u_new

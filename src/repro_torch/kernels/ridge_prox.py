@@ -15,7 +15,9 @@ This wrapper takes CUDA tensors only and raises on anything it does not
 take; ``kernels.ops.batched_affine`` sends CPU tensors to the plain
 version.  ``batched_affine.launches`` counts the launches, and
 ``batched_affine.lane_launches`` those over more than one lane, by P's
-kind (``"shared"`` or ``"per_lane"``).
+kind (``"shared"`` or ``"per_lane"``); a call inside a CUDA-graph capture
+records the kernel and is not counted.  The kernel counts its own runs on
+the card, replays included (``_build.executions``).
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from repro_torch.kernels._build import check_tensor as _check
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_longlong,
                                      ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_void_p]
+                                     ctypes.c_void_p, ctypes.c_void_p]
 
 
 def batched_affine(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -59,12 +61,15 @@ def batched_affine(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(device):
         err = _build.entry("batched_affine_launch", _ARGTYPES)(
             p.data_ptr(), v.data_ptr(), out.data_ptr(), lanes, nodes, n,
-            int(shared), stream)
+            int(shared), _build.execution_counter("batched_affine", device),
+            stream)
     if err != 0:
         raise RuntimeError(f"batched_affine launch failed: CUDA error {err}")
-    batched_affine.launches += 1
-    if lanes > 1:
-        batched_affine.lane_launches["shared" if shared else "per_lane"] += 1
+    if not torch.cuda.is_current_stream_capturing():
+        batched_affine.launches += 1
+        if lanes > 1:
+            batched_affine.lane_launches["shared" if shared
+                                         else "per_lane"] += 1
     return out
 
 

@@ -14,7 +14,9 @@ bit.  ``kernels/_build.py`` builds it on first use.
 This wrapper takes CUDA tensors only and raises on anything it does not
 take; ``kernels.ops.tv_prox`` sends CPU tensors to the plain version.
 ``tv_prox.launches`` counts the launches, and ``tv_prox.lane_launches``
-those over more than one lane, by u's dtype.
+those over more than one lane, by u's dtype; a call inside a CUDA-graph
+capture records the kernel and is not counted.  The kernel counts its own
+runs on the card, replays included (``_build.executions``).
 """
 from __future__ import annotations
 
@@ -27,7 +29,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._build import check_tensor as _check
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_void_p]
+                                     ctypes.c_int, ctypes.c_void_p,
+                                     ctypes.c_void_p]
 _STORAGE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -58,12 +61,14 @@ def tv_prox(u: torch.Tensor, bound: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(device):
         err = _build.entry("tv_prox_launch", _ARGTYPES)(
             u.data_ptr(), bound.data_ptr(), out.data_ptr(), bound.numel(),
-            n, _STORAGE[u.dtype], stream)
+            n, _STORAGE[u.dtype],
+            _build.execution_counter("tv_prox", device), stream)
     if err != 0:
         raise RuntimeError(f"tv_prox launch failed: CUDA error {err}")
-    tv_prox.launches += 1
-    if lanes > 1:
-        tv_prox.lane_launches[str(u.dtype).removeprefix("torch.")] += 1
+    if not torch.cuda.is_current_stream_capturing():
+        tv_prox.launches += 1
+        if lanes > 1:
+            tv_prox.lane_launches[str(u.dtype).removeprefix("torch.")] += 1
     return out
 
 

@@ -46,6 +46,8 @@ PHASE_HALO_DIFF = "halo_exchange_diff"
 PHASE_MAILBOX_DIFF = "mailbox_exchange_diff"
 #: Loop ranges (engine/loop.py).
 PHASE_METRIC_BLOCK = "solve_metric_block"
+# a replay of a tol solve's captured metric block (engine/loop.py)
+PHASE_METRIC_BLOCK_REPLAY = "solve_metric_block_replay"
 PHASE_METRICS = "solve_metrics"
 #: The fused kernel's one range a launch: the step phases it fuses.
 FUSED_STEP = ("fused_pd_step[" + "+".join(

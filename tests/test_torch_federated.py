@@ -569,8 +569,7 @@ def test_tol_run_stops_at_the_reference_round():
     assert its == want.diagnostics["iterations"]
     assert 0 < its < conf["num_rounds"]
     assert got.ledger.num_rounds == its == got.schedule.shape[0]
-    # the port's dense tol engine computes its whole budget: give it ten
-    # blocks past the stop, enough to show it stops there too
-    dense = Solver(SolverConfig(num_iters=its + 100, rho=1.9,
+    # the dense tol solve on the same budget stops there too
+    dense = Solver(SolverConfig(num_iters=conf["num_rounds"], rho=1.9,
                                 metric_every=10, tol=5e-2)).run(problem)
     assert dense.diagnostics["iterations"] == its

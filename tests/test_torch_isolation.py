@@ -1,10 +1,12 @@
 """The port stands alone and refuses loudly what it does not run yet.
 
   * no module of ``src/repro_torch/`` (nor ``chip_smoke.py``) imports
-    ``jax`` or the reference package ``repro``,
+    ``jax`` or the reference package ``repro`` — the serving layer
+    (``repro_torch.serving``) among them,
   * entry points default to the CUDA card and raise without one instead
     of moving to the CPU (``solve_path`` and ``solve_many`` run on their
-    problems' device, which defaults to the card),
+    problems' device, which defaults to the card; a plan file loads onto
+    the card unless the caller names a device),
   * what the port leaves out raises ``NotImplementedError``.
 """
 import ast
@@ -50,10 +52,24 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
+def test_serving_modules_are_checked():
+    names = {p.name for p in PORT_FILES if p.parent.name == "serving"}
+    assert names == {"__init__.py", "batch.py", "cache.py", "ledger.py",
+                     "queue.py", "service.py", "stream.py"}
+
+
 @pytest.mark.parametrize("entry", ["make_sbm_regression", "build_graph",
                                    "problem_create", "state_from_arrays",
-                                   "solve_path", "solve_many"])
-def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
+                                   "solve_path", "solve_many",
+                                   "load_plans"])
+def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry,
+                                                           tmp_path):
+    if entry == "load_plans":
+        from repro_torch.serving import PlanCache, SolveService
+        PlanCache().save(str(tmp_path))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            SolveService().load_plans(str(tmp_path))
+        return
     with pytest.raises(RuntimeError, match="CUDA"):
         if entry == "make_sbm_regression":
             make_sbm_regression(seed=0)

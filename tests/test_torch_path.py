@@ -12,12 +12,13 @@ go through both:
     lane's ``w`` within 1e-4 of the reference's, its objective trace
     within rtol 1e-4 (the cross-backend tolerances of
     ``tests/test_conformance.py``);
-  * the masked tol sweep on the reference's ``TOL_CONF`` and lambdas
-    (its budgets cut to what these lambdas need):
-    per-lane stopping iterations equal to the reference's, frozen lanes
-    left bit for bit as they stopped, each lane against a single tol
-    solve from the same start (same iteration, ``w`` within 1e-6), and
-    one device->host fetch for the sweep;
+  * the masked tol sweep on the reference's ``TOL_CONF``, lambdas and
+    budgets (``tests/test_engine.py``): per-lane stopping iterations
+    equal to the reference's, frozen lanes left bit for bit as they
+    stopped, each lane against a single tol solve from the same start
+    (same iteration, ``w`` within 1e-6), no block after the last lane's
+    stop (a counting block function), and one device->host fetch for
+    the sweep;
   * the plain versions of the three kernels with a lane axis against L
     one-lane calls: bit-identical (each lane's arithmetic is the one-lane
     arithmetic).
@@ -289,12 +290,12 @@ PATH_BASE = dict(rho=1.9, warm_iters=300, final_iters=200, metric_every=10)
 PATHS = {"dense": dict(backend="dense"),
          "pallas_unfused": dict(backend="pallas", fused=False),
          "pallas_fused": dict(backend="pallas", fused=True)}
-# the reference's masked-sweep settings (tests/test_engine.py), with the
-# budgets cut to what these lambdas need: from zero inits the last lane
-# stops at 1930, from the cascade's starts at 190, and the warm tol solve
-# well inside 1000 (the port computes a dense tol budget to its end)
-TOL_CONF = dict(num_iters=2000, rho=1.9, metric_every=10, tol=5e-3)
-TOL_PATH = dict(TOL_CONF, warm_iters=1000, final_iters=400)
+# the reference's masked-sweep settings (tests/test_engine.py): from zero
+# inits the last lane stops at 1930, from the cascade's starts at 190;
+# the tol engines run no block after the stop, so the budgets cost only
+# the blocks the lanes need
+TOL_CONF = dict(num_iters=4000, rho=1.9, metric_every=10, tol=5e-3)
+TOL_PATH = dict(TOL_CONF, final_iters=2000)
 TOL_LAMS = (0.3, 0.003, 0.1, 0.03)
 
 _reference: dict = {}
@@ -484,6 +485,46 @@ def test_masked_sweep_lanes_match_single_solves():
             cut = _sweep(problem, TOL_LAMS, *zeros, int(iters[lane]))
             assert torch.equal(cut[0][lane], w_b[lane])
             assert torch.equal(cut[1][lane], u_b[lane])
+
+
+def test_masked_sweep_runs_no_block_after_the_last_stop(monkeypatch):
+    """A counting block function: the sweep advances its lanes once a
+    block up to the last lane's stop and not after; its plain version
+    (``device_loop_plain``) advances them for the whole budget and leaves
+    the same lanes, traces of the blocks run and stops, bit for bit."""
+    from repro_torch.api import solver
+
+    problem, _ = _port(1e-2)
+    V, n, E = problem.num_nodes, problem.num_features, problem.graph.num_edges
+    # a budget of 2000: past the last stop (1930), and the plain loop
+    # below computes all of it
+    L, budget = len(TOL_LAMS), 2000
+    zeros = (torch.zeros((L, V, n)), torch.zeros((L, E, n)))
+    calls = []
+    real = solver._path_lane_fns
+
+    def counted(*a, **kw):
+        advance, metrics = real(*a, **kw)
+
+        def advance_counted(state):
+            calls.append(1)
+            return advance(state)
+        return advance_counted, metrics
+
+    monkeypatch.setattr(solver, "_path_lane_fns", counted)
+    w_b, u_b, traces, iters_b, blocks = _sweep(problem, TOL_LAMS, *zeros,
+                                               budget)
+    nb = int(blocks)
+    assert len(calls) == nb == int(iters_b.max()) // TOL_CONF[
+        "metric_every"] < budget // TOL_CONF["metric_every"]
+    calls.clear()
+    monkeypatch.setattr(solver, "device_loop", loop.device_loop_plain)
+    plain = _sweep(problem, TOL_LAMS, *zeros, budget)
+    assert len(calls) == budget // TOL_CONF["metric_every"]
+    assert torch.equal(plain[0], w_b) and torch.equal(plain[1], u_b)
+    assert torch.equal(plain[3], iters_b) and int(plain[4]) == nb
+    for got, want in zip(traces, plain[2]):
+        assert torch.equal(got[:nb], want[:nb])
 
 
 @contextlib.contextmanager
