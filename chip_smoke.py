@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels (``fused_pd_step`` for the squared, lasso
-and logistic losses, ``tv_prox``, ``batched_affine``) from this checkout
-into one library, holds every kernel and variant (each loss in float32
+and logistic losses, at the register tile and wide, staged and streamed;
+``tv_prox``, ``batched_affine``; the certificate's ``sym_pinv``) from this
+checkout into one library, holds every kernel and variant (each loss in float32
 and bfloat16 storage) against its plain PyTorch version on the card
 (and ``fused_pd_step`` bit-identical over two launches), and
 drives both kernel paths of ``Solver(SolverConfig(backend="pallas",
@@ -24,11 +25,16 @@ lane against a one-lane solve, bit for bit, and the squared f32 sweep
 against the dense path's), the masked tol sweep through the unfused
 lanes under sync debug mode "error", and ``solve_many`` of four problems
 on two graph structures; each lane kernel against its plain version and
-against one-lane launches, and a problem wider than the fused kernel's
-tile solved through the unfused path.  Then the two lambda paths
-that once raised (``lane_faults``: a logistic path past the kernel's
-lane plan runs the unfused lanes; 4097 lambdas launch in lane groups,
-bit-identical to one-lane solves), the federated runtime in synchronous
+against one-lane launches.  The fused kernel past its register tile
+(``wide_vs_plain``: the wide variant, a node a warp, for every loss and
+storage type at n = 17-128, and the streamed variants that read the
+prox parameters from device memory, against the plain version, over
+lanes and bit-identical to the staged variant; ``wide_features``: n = 17
+and 33 through the fused route, a tol solve captured under the IF node).
+Then the two lambda paths that once raised (``lane_faults``: a logistic
+path past the kernel's staging plan runs the fused lanes streamed, each
+lane bit-identical to a one-lane solve; 4097 lambdas launch in lane
+groups, bit-identical to one-lane solves), the federated runtime in synchronous
 mode against the dense backend on §5 and the zoo (``federated_s5``) and
 at full size with partial participation, int8 messages, its ledger and a
 checkpointed resume (``federated_full_size``), and telemetry at full size
@@ -39,10 +45,17 @@ CUDA graph under an IF node against its plain loop, bit for bit, on §5
 and at full size; a dense full-size tol solve at budget B and 4B) and
 the solve service (``serving_s5``: dense and fused services on §5 and
 the serving tests' chains, each answer equal to ``Solver.run`` from the
-same state; ``serving_full_size``: cold and warm requests at 1M, a
-second tenant's plan hit, plans saved and loaded into a restarted
-service that plans nothing, ``solve_batch`` of four sessions, a dense
-pair).
+same state, and the certificate's ``sym_pinv`` kernel against its
+plain version and ``torch.linalg.pinv`` at n = 2-64; ``serving_full_size``:
+cold and warm requests at 1M, a second tenant's plan hit, plans saved
+and loaded into a restarted service that plans nothing, ``solve_batch``
+of four sessions, a dense pair).  Last, the slice past the register tile
+at full size: ``wide_full_size`` (every loss at n = 32 on the 1M graph in
+float32 and bfloat16, against the dense backend, and a 6-lambda path
+through the wide lanes), ``wide_streamed`` (wide nodes past the staging
+plan, 2,000 nodes) and ``many_samples_full_size`` (logistic nodes of
+16,384 samples on 20,000 nodes, streamed, in float32 and bfloat16 and
+over a 6-lambda path, against the dense backend).
 Where a tol engine replays a captured block, the kernels it ran are
 counted on the card by the kernels themselves (``device_executions``):
 the wrappers' launch counters count only the launches made outside a
@@ -63,6 +76,7 @@ from __future__ import annotations
 
 import bisect
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -119,6 +133,37 @@ for _name, _variant in LANE_KERNELS.items():
     KERNELS[_name] = {"name": _name, "route": "cuda",
                       "source": LOSS_SOURCE[_variant.split("/")[0]],
                       "replaces": "src/repro/kernels/pd_step.py:144"}
+# the wide (n > 16) and streamed (parameters read from device memory)
+# variants the main path runs: kernels' line name -> the launch counters'
+# key (kernels/pd_step.py:variant_key) and source
+WIDE_SOURCE = {"squared": "src/repro_torch/csrc/pd_step_wide.cu",
+               "lasso": "src/repro_torch/csrc/pd_step_wide.cu",
+               "logistic": "src/repro_torch/csrc/pd_step_wide_logistic.cu"}
+STREAMED_SOURCE = "src/repro_torch/csrc/pd_step_logistic_streamed.cu"
+NEW_VARIANTS = {
+    **{f"fused_pd_step[{loss},{tag},wide]": (f"{loss}/{dt}/wide",
+                                             WIDE_SOURCE[loss])
+       for loss in ("squared", "lasso", "logistic")
+       for dt, tag in (("float32", "f32"), ("bfloat16", "bf16"))},
+    "fused_pd_step[squared,f32,wide,lanes]": ("squared/float32/wide",
+                                              WIDE_SOURCE["squared"]),
+    **{f"fused_pd_step[{loss},f32,wide,streamed]": (
+        f"{loss}/float32/wide/streamed", WIDE_SOURCE[loss])
+       for loss in ("squared", "lasso", "logistic")},
+    "fused_pd_step[logistic,f32,streamed]": ("logistic/float32/streamed",
+                                             STREAMED_SOURCE),
+    "fused_pd_step[logistic,bf16,streamed]": ("logistic/bfloat16/streamed",
+                                              STREAMED_SOURCE),
+    "fused_pd_step[logistic,f32,streamed,lanes]": (
+        "logistic/float32/streamed", STREAMED_SOURCE),
+}
+for _name, (_key, _src) in NEW_VARIANTS.items():
+    KERNELS[_name] = {"name": _name, "route": "cuda", "source": _src,
+                      "replaces": "src/repro/kernels/pd_step.py:144"}
+# a repair, no port: the reference's certificate calls jnp.linalg.pinv
+KERNELS["sym_pinv"] = {"name": "sym_pinv", "route": "cuda",
+                       "source": "src/repro_torch/csrc/sym_pinv.cu",
+                       "replaces": "src/repro/engine/step.py:203"}
 KERNELS["tv_prox[lanes]"] = dict(KERNELS["tv_prox"], name="tv_prox[lanes]")
 for _kind in ("shared P", "per-lane P"):
     _name = f"batched_affine[lanes,{_kind}]"
@@ -130,6 +175,12 @@ LASSO_KW = {"alpha": 0.02, "num_inner": 30}    # the zoo's sparse_lasso
 AFFINE_TOL = 1e-5          # batched_affine vs plain version (summation order)
 ZOO_OBJ_RTOL = 1e-5        # unfused vs dense objective traces, zoo
 L2_BYTES = 50e6            # H100 L2 cache
+WIDE_NS = (17, 24, 32, 33, 64, 128)   # the wide variant's checked widths
+WIDE_N = 32                # the wide variant's full-size width
+MANY_SAMPLES = 16_384      # logistic samples a node past the staging plan
+MANY_NODES = 20_000
+MANY_ITERS = 20            # their solves' depth (~0.2 s a kernel step)
+ROUTE_ITERS = 5            # fused against unfused route: a solve's depth
 # the §5 shapes of the port's kernel tests (tests/test_torch_kernels.py)
 TV_SHAPES = [(7, 2), (512, 2), (1000, 16), (33, 5), (1, 1), (65, 3)]
 AFFINE_SHAPES = [(300, 2), (64, 8), (1000, 32), (13, 3), (1, 1), (65, 3)]
@@ -152,16 +203,24 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, copies: int = 1) -> float:
+def cuda_ms(fn, reps: int, copies: int = 1, budget_ms: float = 2000.0
+            ) -> float:
     """Mean milliseconds per call of ``fn(i)`` on the card (CUDA events,
-    after one warm-up call of each input copy); call ``r`` gets copy
-    ``r % copies``, so inputs smaller than L2 can be timed cold."""
+    after one warm-up call of each input copy, itself timed); call ``r``
+    gets copy ``r % copies``, so inputs smaller than L2 can be timed cold.
+    A call that takes long runs fewer times, within ``budget_ms`` (at
+    least twice)."""
     import torch
-    for i in range(copies):
-        fn(i)
-    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for i in range(copies):
+        fn(i)
+    end.record()
+    end.synchronize()
+    first = start.elapsed_time(end) / copies
+    reps = max(2, min(reps, int(budget_ms / max(first, 1e-3))))
     start.record()
     for r in range(reps):
         fn(r % copies)
@@ -211,8 +270,15 @@ def device_profile(torch, fn, reps: int, top: int = 10) -> dict:
                         for k, c, us in rows[:top]]}
 
 
-def max_diff(a, b) -> float:
-    return float((a.double() - b.double()).abs().max())
+def max_diff(a, b, chunk: int = 1 << 26) -> float:
+    """max |a - b| in float64, a slice of ``chunk`` elements at a time
+    (six lanes of duals at n = 32 on the full-size graph are 2 G
+    elements)."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    if a.numel() == 0:
+        return 0.0
+    return max(float((a[i:i + chunk].double() - b[i:i + chunk].double())
+                     .abs().max()) for i in range(0, a.numel(), chunk))
 
 
 def bf16_ulp(scale: float) -> float:
@@ -233,14 +299,18 @@ def plain_step(*args, incidence, **kw):
     return fused_pd_step_ref(*args, **kw)
 
 
-def step_inputs(v, n, bv, seed, device, loss="squared", dtype="float32"):
+def step_inputs(v, n, bv, seed, device, loss="squared", dtype="float32",
+                samples=None, ridge=False):
     """Storage tensors of one fused step on a small SBM (the shapes of
     the port's kernel tests), with the prox parameters of ``loss`` drawn
     as ``tests/test_torch_kernels.py:_loss_arrays`` draws them (squared:
     P = I + N(0, 0.01), b ~ N(0, 0.01); lasso: 3 samples per node;
     logistic: 8, Bernoulli labels, every third node's last sample
-    masked; half the nodes labeled), and w, u and the parameters in the
-    storage ``dtype``.  Returns ``kernels.ops.pd_step``'s arguments: the
+    masked; half the nodes labeled; ``samples`` overrides the count;
+    ``ridge``: the squared loss's P a ridge prox's, (I + X^T X / m)^-1 of
+    m = n + 1 samples, symmetric with eigenvalues in (0, 1], so a long
+    run stays bounded), and w, u and the parameters in the storage
+    ``dtype``.  Returns ``kernels.ops.pd_step``'s arguments: the
     padded tables for the plain version, the compact incidence (in
     ``kw``) for the kernel."""
     import torch
@@ -265,12 +335,16 @@ def step_inputs(v, n, bv, seed, device, loss="squared", dtype="float32"):
     u_store[lt.klo * eb:lt.klo * eb + lt.edges_pad] = rand(
         lt.edges_pad, n, scale=0.1)
     w_store = lt.pad_node_store(rand(nodes, n))
-    if loss == "squared":
+    if loss == "squared" and ridge:
+        x = rng.standard_normal((nodes, n + 1, n))
+        params = (rand(nodes, n, scale=0.1), t(np.linalg.inv(
+            np.eye(n) + np.einsum("vmn,vmk->vnk", x, x) / (n + 1))))
+    elif loss == "squared":
         params = (rand(nodes, n, scale=0.1),
                   rand(nodes, n, n, scale=0.1) + torch.eye(n, device=device))
     else:
         tau_np = tau.cpu().numpy().astype(np.float64)
-        ms = 3 if loss == "lasso" else 8
+        ms = samples or (3 if loss == "lasso" else 8)
         x = rng.standard_normal((nodes, ms, n))
         mask = np.ones((nodes, ms))
         labeled = (rng.random(nodes) < 0.5).astype(np.float64)
@@ -440,7 +514,9 @@ def phase_build(torch) -> None:
                     for name, log in logs.items()}})
     require(sorted(logs) == ["graph_cond.cu", "pd_step.cu",
                              "pd_step_lasso.cu", "pd_step_logistic.cu",
-                             "ridge_prox.cu", "tv_prox.cu"],
+                             "pd_step_logistic_streamed.cu",
+                             "pd_step_wide.cu", "pd_step_wide_logistic.cu",
+                             "ridge_prox.cu", "sym_pinv.cu", "tv_prox.cu"],
             f"built sources {sorted(logs)}")
 
 
@@ -462,8 +538,17 @@ def affine_inputs(v, n, seed, device, p=None, v_scale=1.0):
     return p, v_scale * torch.randn((v, n), generator=gen, device=device)
 
 
+def f64_args(args):
+    """A step's arguments with every float tensor in float64: the plain
+    version on them is the yardstick of float32 rounding."""
+    def f64(t):
+        return t.double() if t.is_floating_point() else t
+    return tuple(tuple(map(f64, a)) if isinstance(a, tuple) else f64(a)
+                 for a in args)
+
+
 def check_step(torch, got, want, args, dtype: str,
-               step_tol: float = STEP_TOL) -> dict:
+               step_tol: float = STEP_TOL, exact=None) -> dict:
     """A fused step's outputs against its plain version's: the largest
     |dw|, |du| and residual difference, and the limits they are held to.
     float32: STEP_TOL (the kernel sums in slot order with fused
@@ -472,11 +557,18 @@ def check_step(torch, got, want, args, dtype: str,
     both round the same f32 values to nearest even, so an output may
     differ by one bf16 ulp at the state's scale where an f32 difference
     straddles a rounding boundary, and the residual by that ulp over
-    min(tau, sigma)."""
+    min(tau, sigma).  ``exact`` (the plain version in float64): a float32
+    limit grows to twice the plain version's own distance from it where
+    that is larger (the wide logistic's 128 x 128 Newton solves reach
+    ~1e-5 by themselves)."""
     dw, du = max_diff(got[0], want[0]), max_diff(got[1], want[1])
     dr = max_diff(got[2], want[2])
     r_lim = step_tol * max(1.0, float(want[2].abs()))
     lim_w = lim_u = step_tol
+    if exact is not None and dtype == "float32":
+        lim_w = max(lim_w, 2.0 * max_diff(want[0], exact[0]))
+        lim_u = max(lim_u, 2.0 * max_diff(want[1], exact[1]))
+        r_lim = max(r_lim, 2.0 * max_diff(want[2], exact[2]))
     if dtype == "bfloat16":
         lim_w = bf16_ulp(float(want[0].float().abs().max()))
         lim_u = bf16_ulp(float(want[1].float().abs().max()))
@@ -486,6 +578,50 @@ def check_step(torch, got, want, args, dtype: str,
     return {"dw": dw, "du": du, "dres": dr, "limit_w": lim_w,
             "limit_u": lim_u, "res_limit": r_lim,
             "ok": dw <= lim_w and du <= lim_u and dr <= r_lim}
+
+
+def kernel_cases() -> list:
+    """``kernel_vs_plain``'s cases of the register-tile kernel: the
+    earlier slices' squared float32 ones, then every variant at widths
+    2..16, nb > 1 and iters > 1, each with the residual: (loss, dtype, v,
+    n, bv, rho, reg, iters)."""
+    regs = ("tv", "tv2")
+    cases = [("squared", "float32", v, n, bv, rho, reg, 1)
+             for v, n, bv in ((61, 2, 16), (103, 3, 32), (40, 4, 64))
+             for rho in (1.0, 1.9) for reg in regs]
+    cases += [("squared", "float32", 48, 2, None, 1.9, reg, 5)
+              for reg in regs]
+    cases += [(loss, dt) + c for loss, dt in VARIANTS for c in (
+        (61, 2, 16, 1.0, "tv", 1), (103, 3, 32, 1.9, "tv2", 1),
+        (64, 8, 16, 1.9, "tv", 1), (50, 16, 32, 1.0, "tv2", 1),
+        (48, 2, None, 1.9, "tv", 5), (48, 16, None, 1.9, "tv2", 5))]
+    return cases
+
+
+def kernel_digests(torch, device) -> dict:
+    """A SHA-256 of the kernel's outputs (w, u, residual) on each of
+    ``kernel_cases``' inputs, one lane and three (``lane_args``), with
+    the checkout's own ``ops.pd_step``: the A/B run compares them across
+    checkouts (the register-tile variants must not change their bits)."""
+    import hashlib
+
+    from repro_torch.api.regularizers import SquaredTV, TotalVariation
+    from repro_torch.kernels import ops
+
+    regs = {"tv": TotalVariation(), "tv2": SquaredTV()}
+    out = {}
+    for loss, dt, v, n, bv, rho, reg, iters in kernel_cases():
+        args, kw = step_inputs(v, n, bv, seed=v, device=device, loss=loss,
+                               dtype=dt)
+        kw.update(loss=port_loss(loss), reg=regs[reg], rho=rho, iters=iters,
+                  compute_residual=True)
+        h = hashlib.sha256()
+        for a in (args, lane_args(torch, args, 3)):
+            for t in ops.pd_step(*a, **kw):
+                h.update(t.detach().float().cpu().numpy().tobytes())
+        out[f"{loss}/{dt}/v{v}/n{n}/bv{bv}/rho{rho}/{reg}/i{iters}"] = \
+            h.hexdigest()
+    return out
 
 
 def phase_kernel_vs_plain(torch, dev) -> dict:
@@ -501,19 +637,8 @@ def phase_kernel_vs_plain(torch, dev) -> dict:
 
     t0 = time.perf_counter()
     regs = {"tv": TotalVariation(), "tv2": SquaredTV()}
-    # the earlier slices' squared float32 cases, then every variant at
-    # widths 2..16, nb > 1 and iters > 1, each with the residual
-    cases = [("squared", "float32", v, n, bv, rho, reg, 1)
-             for v, n, bv in ((61, 2, 16), (103, 3, 32), (40, 4, 64))
-             for rho in (1.0, 1.9) for reg in regs]
-    cases += [("squared", "float32", 48, 2, None, 1.9, reg, 5)
-              for reg in regs]
-    cases += [(loss, dt) + c for loss, dt in VARIANTS for c in (
-        (61, 2, 16, 1.0, "tv", 1), (103, 3, 32, 1.9, "tv2", 1),
-        (64, 8, 16, 1.9, "tv", 1), (50, 16, 32, 1.0, "tv2", 1),
-        (48, 2, None, 1.9, "tv", 5), (48, 16, None, 1.9, "tv2", 5))]
     rows, errs = [], {variant_name(*vt): 0.0 for vt in VARIANTS}
-    for loss, dt, v, n, bv, rho, reg, iters in cases:
+    for loss, dt, v, n, bv, rho, reg, iters in kernel_cases():
         args, kw = step_inputs(v, n, bv, seed=v, device=dev, loss=loss,
                                dtype=dt)
         kw.update(loss=port_loss(loss), reg=regs[reg], rho=rho, iters=iters,
@@ -570,8 +695,10 @@ def phase_kernel_vs_plain(torch, dev) -> dict:
 def reset_launches() -> None:
     from repro_torch.kernels.pd_step import fused_pd_step
     from repro_torch.kernels.ridge_prox import batched_affine
+    from repro_torch.kernels.sym_pinv import sym_pinv
     from repro_torch.kernels.tv_prox import tv_prox
     fused_pd_step.launches = tv_prox.launches = batched_affine.launches = 0
+    sym_pinv.launches = 0
     fused_pd_step.variant_launches.clear()
     for fn in (fused_pd_step, tv_prox, batched_affine):
         fn.lane_launches.clear()
@@ -581,13 +708,15 @@ def read_launches() -> dict:
     """Launches per kernel since the last reset, and fused_pd_step's by
     variant ("<loss>/<dtype>"); the launches over more than one lane by
     variant (fused_pd_step), u's dtype (tv_prox) or P's kind
-    (batched_affine)."""
+    (batched_affine); and the certificate's sym_pinv."""
     from repro_torch.kernels.pd_step import fused_pd_step
     from repro_torch.kernels.ridge_prox import batched_affine
+    from repro_torch.kernels.sym_pinv import sym_pinv
     from repro_torch.kernels.tv_prox import tv_prox
     return {"fused_pd_step": fused_pd_step.launches,
             "tv_prox": tv_prox.launches,
             "batched_affine": batched_affine.launches,
+            "sym_pinv": sym_pinv.launches,
             "fused_pd_step_variants": dict(fused_pd_step.variant_launches),
             "lanes": {"fused_pd_step": dict(fused_pd_step.lane_launches),
                       "tv_prox": dict(tv_prox.lane_launches),
@@ -1110,21 +1239,57 @@ def moving_state(torch, lt, n, la2, device, store):
     return w_store.to(store), u_store.to(store)
 
 
+BF16_GATES = {"objective_rel": 0.15, "w_rel": 0.5}   # tests/test_precision.py
+
+
+def dense_check(torch, got, want, dtype: str,
+                w_limit: float = SOLVE_TOL) -> dict:
+    """A fused solve against the dense backend's (float32): ``w`` within
+    ``w_limit`` (SOLVE_TOL unless a float64 yardstick widens it) and the
+    objective trace within rtol 1e-4; in bf16 storage the reference's
+    gates (final objective 0.15 relative, ``w`` 0.5 of its scale)."""
+    dw, obj_rel = compare(got, want)
+    final_rel = float((got.objective[-1] - want.objective[-1]).abs()
+                      / want.objective[-1].abs())
+    w_rel = dw / float(want.w.abs().max())
+    ok = (dw <= w_limit and obj_rel <= 1e-4 if dtype == "float32" else
+          final_rel <= BF16_GATES["objective_rel"]
+          and w_rel <= BF16_GATES["w_rel"])
+    return {"max_abs_dw_vs_dense": dw, "limit_w": w_limit,
+            "objective_max_rel_vs_dense": obj_rel,
+            "final_objective_rel_vs_dense": final_rel,
+            "w_rel_vs_dense": w_rel, "ok": ok}
+
+
 def full_size_solve(torch, dev, cfg, problem, w_true, *, drift=False,
-                    profile=False) -> tuple[dict, dict]:
+                    profile=False, name=None, dense_iters=None,
+                    dense_cache=None, exact=False) -> tuple[dict, dict]:
     """One fused solve at full size (``cfg`` names its storage dtype),
     then the kernel alone and its plain version over one step and over
     one metric block from a random state at the solve's scale.  Returns
-    (the phase row, the variant's entry for the kernels' line).
+    (the phase row, the variant's entry for the kernels' line, under
+    ``name``: the register-tile variant's by default).
     ``drift`` adds a float64 run of the plain version as a yardstick,
-    ``profile`` a profiled metric block."""
+    ``profile`` a profiled metric block, ``dense_iters`` a fused solve of
+    that budget (the solve itself where it is the solve's) against the
+    dense backend's (``dense_check``; ``dense_cache``, a dict, keeps the
+    dense solve for the next call on the same problem).  ``exact`` (a
+    float32 solve held to dense over its whole budget) adds the float64
+    yardstick of that comparison: the plain version in float64 on the
+    solve's own float32 inputs over the same iterations from the same
+    zero start, and ``w`` is then held within SOLVE_TOL or twice the
+    dense solve's distance from it, where larger (float32 drift alone)."""
     from repro_torch.api import Solver, backends
     from repro_torch.engine import capped
     from repro_torch.kernels import ops
+    from repro_torch.kernels.pd_step import plan_variant, variant_key
 
     loss, dtype = problem.loss.name, cfg.dtype
-    variant = f"{loss}/{dtype}"
     store = getattr(torch, dtype)
+    n = problem.num_features
+    kind = {"squared": 0, "lasso": 1, "logistic": 2}[loss]
+    staged = plan_variant(kind, n, problem.data.x.shape[-2]) == "staged"
+    variant = variant_key(loss, store, n, staged)
     t0 = time.perf_counter()
     require(backends._should_fuse(problem, cfg), f"{variant}: no fusion")
     plan_s = time.perf_counter() - t0         # plans (or fetches) the layout
@@ -1155,41 +1320,97 @@ def full_size_solve(torch, dev, cfg, problem, w_true, *, drift=False,
     require(bool(torch.isfinite(result.w).all()
                  and torch.isfinite(result.objective).all()),
             f"{variant} full-size result not finite")
-    require(diag["dual_infeasibility"] <= infeasible_lim,
+    require(diag.get("dual_infeasibility", 0.0) <= infeasible_lim,
             f"{variant} full-size dual infeasible {diag}")
 
-    # the kernel alone at the target lambda, from a state that moves
     (params_s, pkeys, _, tau_s, _, sig2, src2, dst2, la2, _) = \
         backends._fused_setup(problem.graph, problem.data, problem.lam,
                               None, loss=problem.loss,
                               reg=problem.regularizer, layout=lt,
                               dtype=store)
-    n, eb, lo = problem.num_features, lt.block_edges, lt.klo * lt.block_edges
-    w_store, u_store = moving_state(torch, lt, n, la2, dev, store)
-    args = (w_store, u_store, lt.pad_node_store(lt.inc_edges),
-            lt.pad_node_store(lt.inc_signs), params_s, tau_s, src2, dst2,
-            sig2, la2)
+    eb, lo = lt.block_edges, lt.klo * lt.block_edges
+    tables = (lt.pad_node_store(lt.inc_edges),
+              lt.pad_node_store(lt.inc_signs), params_s, tau_s, src2, dst2,
+              sig2, la2)
     kw = dict(loss=problem.loss, reg=problem.regularizer, pkeys=pkeys,
               block_nodes=lt.block_nodes, block_edges=eb, kn=lt.kn,
               klo=lt.klo, khi=lt.khi, rho=cfg.rho, incidence=lt.compact)
+
+    def run_block(fn, args, iters):
+        """``iters`` iterations from ``args``' state, launched as the
+        solve launches them (one launch on a whole-graph layout)."""
+        if lt.num_blocks == 1:
+            return fn(*args, **kw, iters=iters)
+        ws, us = args[0].clone(), args[1].clone()
+        for _ in range(iters):
+            wn, un = fn(ws, us, *args[2:], **kw)
+            ws[:wn.shape[0]] = wn
+            us[lo:lo + un.shape[0]] = un
+        return wn, un
+
+    def metric_block(fn, args):
+        """One metric block from the shared state."""
+        return run_block(fn, args, cfg.metric_every)
+
+    def f64(t):
+        return t.double() if t.is_floating_point() else t
+
+    dense_row = None
+    if dense_iters is not None:
+        fused = result if dense_iters == iterations else Solver(
+            cfg.replace(continuation=False, num_iters=dense_iters)).run(
+                problem, w_true=w_true)
+        t0 = time.perf_counter()
+        cache = {} if dense_cache is None else dense_cache
+        key = (id(problem), dense_iters)
+        if key not in cache:
+            cache[key] = Solver(cfg.replace(
+                backend="dense", dtype="float32", continuation=False,
+                num_iters=dense_iters)).run(problem, w_true=w_true)
+        want = cache[key]
+        torch.cuda.synchronize()
+        dense_s = time.perf_counter() - t0
+        w_limit, yardstick = SOLVE_TOL, {}
+        if exact:
+            require(dtype == "float32" and dense_iters == iterations
+                    and not cfg.continuation,
+                    f"{variant}: the float64 yardstick needs the float32 "
+                    "solve's whole budget from a zero start")
+            t0 = time.perf_counter()
+            zeros = (torch.zeros((lt.nodes_pad + (lt.kn - 1)
+                                  * lt.block_nodes, n), dtype=torch.float64,
+                                 device=dev),
+                     torch.zeros(((lt.num_blocks + lt.klo + lt.khi) * eb, n),
+                                 dtype=torch.float64, device=dev))
+            args64 = zeros + tuple(tuple(map(f64, a)) if isinstance(a, tuple)
+                                   else f64(a) for a in tables)
+            w_x = run_block(plain_step, args64, iterations)[0]
+            del args64, zeros
+            w_x = w_x[:lt.nodes_pad][lt.node_inv.long()]
+            yardstick = {
+                "iterations": iterations,
+                "seconds": time.perf_counter() - t0,
+                "dense_dw_from_f64": max_diff(want.w, w_x),
+                "fused_dw_from_f64": max_diff(fused.w, w_x)}
+            del w_x
+            torch.cuda.empty_cache()
+            w_limit = max(SOLVE_TOL, 2.0 * yardstick["dense_dw_from_f64"])
+        dense_row = {"iterations": dense_iters, "dense_seconds": dense_s,
+                     **dense_check(torch, fused, want, dtype, w_limit)}
+        if yardstick:
+            dense_row["f64_yardstick"] = yardstick
+        del fused, want
+        require(dense_row["ok"], f"{variant} full size vs dense {dense_row}")
+
+    # the kernel alone at the target lambda, from a state that moves
+    w_store, u_store = moving_state(torch, lt, n, la2, dev, store)
+    args = (w_store, u_store) + tables
     ms = cuda_ms(lambda _: ops.pd_step(*args, **kw), reps=20)
     plain_ms = cuda_ms(lambda _: plain_step(*args, **kw), reps=3)
     block_iters = cfg.metric_every if lt.num_blocks == 1 else 1
     block_ms = cuda_ms(
         lambda _: ops.pd_step(*args, **kw, iters=block_iters), reps=3)
     cost = step_cost(args, kw, problem.loss)
-
-    def metric_block(fn, args):
-        """One metric block (``metric_every`` iterations) from the shared
-        state, launched as the solve launches it."""
-        if lt.num_blocks == 1:
-            return fn(*args, **kw, iters=cfg.metric_every)
-        ws, us = args[0].clone(), args[1].clone()
-        for _ in range(cfg.metric_every):
-            wn, un = fn(ws, us, *args[2:], **kw)
-            ws[:wn.shape[0]] = wn
-            us[lo:lo + un.shape[0]] = un
-        return wn, un
 
     k_out = metric_block(ops.pd_step, args)
     p_out = metric_block(plain_step, args)
@@ -1223,12 +1444,11 @@ def full_size_solve(torch, dev, cfg, problem, w_true, *, drift=False,
            "block_max_abs_dw": dw, "block_max_abs_du": du,
            "block_limit_w": lim_w, "block_limit_u": lim_u,
            "plain_moved_max_abs_w": moved_w,
-           "plain_moved_max_abs_u": moved_u}
+           "plain_moved_max_abs_u": moved_u, "variant": variant,
+           "dense": dense_row}
     if drift:
         # the plain version in float64 as a yardstick: how far each
         # float32 version drifts from exact arithmetic over the block
-        def f64(t):
-            return t.double() if t.is_floating_point() else t
         args64 = tuple(tuple(map(f64, a)) if isinstance(a, tuple)
                        else f64(a) for a in args)
         x_out = metric_block(plain_step, args64)
@@ -1249,7 +1469,7 @@ def full_size_solve(torch, dev, cfg, problem, w_true, *, drift=False,
     require(moved_w >= 10 * lim_w and moved_u >= 10 * lim_u,
             f"{variant} full size: the state barely moved (|w| {moved_w}, "
             f"|u| {moved_u}), so the comparison shows nothing")
-    name = variant_name(loss, dtype)
+    name = name or variant_name(loss, dtype)
     entry = dict(KERNELS[name],
                  launches=launches["fused_pd_step_variants"][variant],
                  max_abs_err=max(dw, du), ms=ms, plain_ms=plain_ms,
@@ -1262,8 +1482,9 @@ def phase_full_size(torch, dev, cfg, big, w_true, gen_s) -> tuple:
     """The scale-out topology at FULL_NODES through the fused path
     (squared loss, float32), the kernel alone and its plain version, a
     float64 yardstick and a profiled metric block.  Returns the kernel's
-    entry for the kernels' line, the solve's iterations/s and the
-    layout's planning seconds."""
+    entry for the kernels' line, the solve's iterations/s, the layout's
+    planning seconds and the certificate's ``sym_pinv`` launches (its
+    diagnostics)."""
     from repro_torch.api import backends
 
     row, entry = full_size_solve(torch, dev, cfg, big, w_true, drift=True,
@@ -1272,7 +1493,10 @@ def phase_full_size(torch, dev, cfg, big, w_true, gen_s) -> tuple:
     emit({"phase": "full_size", "generate_seconds": gen_s,
           "compact_incidence_build_seconds": csr_s,
           "max_degree": big.graph.max_degree, **row})
-    return entry, row["iterations_per_s"], row["plan_seconds"]
+    require(row["launches"]["sym_pinv"] >= 1,
+            f"the full-size certificate's sym_pinv launches {row['launches']}")
+    return (entry, row["iterations_per_s"], row["plan_seconds"],
+            row["launches"]["sym_pinv"])
 
 
 def phase_full_size_variants(torch, dev, cfg, big, w_true, others) -> list:
@@ -1581,15 +1805,138 @@ def phase_lanes_vs_plain(torch, dev) -> dict:
     return errs
 
 
+def phase_wide_vs_plain(torch, dev) -> dict:
+    """The wide (n > 16: a node a warp) and streamed (prox parameters read
+    from device memory) variants of ``fused_pd_step`` against the plain
+    version at small shapes: every loss x {float32, bfloat16} x n in
+    WIDE_NS, one call on a banded layout (STEP_TOL; bf16 one ulp) and a
+    100-iteration launch on the whole-graph block (SOLVE_TOL; bf16 one
+    ulp; the squared loss with a ridge prox's P); float32 limits grow to
+    twice the plain version's own distance from its float64 run where
+    that is larger; three lanes in one launch, each bit-identical to a one-lane
+    launch; the streamed variant forced on the same inputs, bit-identical
+    to the staged one (both read each parameter as its storage value
+    widened to float32 and run the same arithmetic).  Then the plan's own
+    streamed launches: logistic nodes of 15,000 samples at n = 2 (the
+    register tile), squared and lasso at n = 256 (P / Q alone 256 KB a
+    node) and logistic at n = 32 with 2,000 samples (the wide kernel).
+    Returns the max error per kernels' line name."""
+    from repro_torch.api.regularizers import SquaredTV, TotalVariation
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.pd_step import (fused_pd_step, plan_variant,
+                                             variant_key)
+
+    t0 = time.perf_counter()
+    regs = {"tv": TotalVariation(), "tv2": SquaredTV()}
+    kinds = {"squared": 0, "lasso": 1, "logistic": 2}
+    errs = dict.fromkeys(NEW_VARIANTS, 0.0)
+
+    def note(key, err):
+        for name, (k, _) in NEW_VARIANTS.items():
+            if k == key:
+                errs[name] = max(errs[name], err)
+
+    def streamed(args, kw):
+        return fused_pd_step(*args[:2], *args[4:], **kw, streamed=True)
+
+    rows = []
+    for loss, dt in VARIANTS:
+        for n in WIDE_NS:
+            reg = regs["tv" if n % 2 else "tv2"]
+            args, kw = step_inputs(40, n, 16, seed=n, device=dev, loss=loss,
+                                   dtype=dt)
+            kw.update(loss=port_loss(loss), reg=reg, rho=1.9,
+                      compute_residual=True)
+            ms = args[4][4].shape[1] if loss == "logistic" else 0
+            plan = plan_variant(kinds[loss], n, ms)
+            got = ops.pd_step(*args, **kw)
+            forced = streamed(args, kw)
+            want = plain_step(*args, **kw)
+            exact = plain_step(*f64_args(args), **kw)
+            largs = lane_args(torch, args, 3)
+            lanes = ops.pd_step(*largs, **kw)
+            ones = [ops.pd_step(*one_lane(largs, k), **kw) for k in range(3)]
+            b_args, b_kw = step_inputs(48, n, None, seed=n + 1, device=dev,
+                                       loss=loss, dtype=dt, ridge=True)
+            b_kw.update(loss=port_loss(loss), reg=reg, rho=1.9, iters=100,
+                        compute_residual=True)
+            block = ops.pd_step(*b_args, **b_kw)
+            b_want = plain_step(*b_args, **b_kw)
+            b_exact = plain_step(*f64_args(b_args), **b_kw)
+            torch.cuda.synchronize()
+            one_call = check_step(torch, got, want, args, dt, exact=exact)
+            hundred = check_step(torch, block, b_want, b_args, dt, SOLVE_TOL,
+                                 exact=b_exact)
+            row = {"loss": loss, "dtype": dt, "n": n, "plan": plan,
+                   "one_call": one_call, "iters_100": hundred,
+                   "streamed_bit_identical_to_staged": all(
+                       torch.equal(a, b) for a, b in zip(got, forced)),
+                   "lanes_bit_identical_to_one_lane_launches": all(
+                       torch.equal(g[k], o) for k, one in enumerate(ones)
+                       for g, o in zip(lanes, one))}
+            rows.append(row)
+            require(one_call["ok"] and hundred["ok"],
+                    f"wide variant vs plain version {row}")
+            require(row["streamed_bit_identical_to_staged"]
+                    and row["lanes_bit_identical_to_one_lane_launches"],
+                    f"wide variant bits {row}")
+            note(variant_key(loss, getattr(torch, dt), n, plan == "staged"),
+                 max(one_call["dw"], one_call["du"], hundred["dw"],
+                     hundred["du"]))
+    # the register tile's streamed variant, forced where both apply
+    for dt in ("float32", "bfloat16"):
+        args, kw = step_inputs(40, 2, 16, seed=2, device=dev,
+                               loss="logistic", dtype=dt, samples=7000)
+        kw.update(loss=port_loss("logistic"), reg=regs["tv"], rho=1.9,
+                  compute_residual=True)
+        same = all(torch.equal(a, b) for a, b in
+                   zip(ops.pd_step(*args, **kw), streamed(args, kw)))
+        require(same, f"logistic/{dt}: streamed differs from staged")
+    # the plan's own streamed launches
+    streamed_rows = []
+    for loss, n, samples in (("logistic", 2, 15_000), ("squared", 256, None),
+                             ("lasso", 256, None), ("logistic", 32, 2000)):
+        args, kw = step_inputs(24, n, 16, seed=n, device=dev, loss=loss,
+                               samples=samples)
+        kw.update(loss=port_loss(loss), reg=regs["tv"], rho=1.9,
+                  compute_residual=True)
+        ms = args[4][4].shape[1] if loss == "logistic" else 0
+        plan = plan_variant(kinds[loss], n, ms)
+        got = ops.pd_step(*args, **kw)
+        want = plain_step(*args, **kw)
+        exact = plain_step(*f64_args(args), **kw)
+        torch.cuda.synchronize()
+        check = check_step(torch, got, want, args, "float32", exact=exact)
+        streamed_rows.append({"loss": loss, "n": n, "samples": ms,
+                              "plan": plan, **check})
+        require(plan == "streamed" and check["ok"],
+                f"streamed by the plan {streamed_rows[-1]}")
+        note(variant_key(loss, torch.float32, n, False),
+             max(check["dw"], check["du"]))
+    torch.cuda.synchronize()
+    emit({"phase": "wide_vs_plain", "seconds": time.perf_counter() - t0,
+          "widths": list(WIDE_NS), "tol_f32": STEP_TOL,
+          "tol_f32_100_iterations": SOLVE_TOL,
+          "tol_bf16": "one bf16 ulp at the state's scale", "cases": rows,
+          "streamed_by_plan": streamed_rows,
+          "max_abs_dw_du": errs})
+    return errs
+
+
 def lane_kernel_entry(torch, dev, problem, lams, store, launches: int,
-                      rho: float, block: int) -> tuple[dict, dict]:
+                      rho: float, block: int,
+                      name=None) -> tuple[dict, dict]:
     """The fused kernel over the path's lanes at full size, alone: ms per
     ``iters=1`` launch over every lane against the same lanes as one-lane
     launches side by side (whole, and each phase alone, ``one_phase``),
     the plain version over the lanes, the bound
     (shared tables once, each lane's state), and a ``block``-iteration
     launch held against the one-lane launches (bit-identical) and, in
-    float32 for the squared loss, against the plain version."""
+    float32 for the squared loss at the register tile's widths, against
+    the plain version.  For the wide and streamed variants the plain
+    version runs a lane at a time (its gathers, or its predictions over
+    every sample, for every lane at once would not fit the card).  ``name``: the kernels' line name (the register-tile
+    lane variant's by default)."""
     from repro_torch.api import backends
     from repro_torch.kernels import ops
 
@@ -1622,9 +1969,16 @@ def lane_kernel_entry(torch, dev, problem, lams, store, launches: int,
                 lambda _: ops.pd_step(*args, **kw), reps=20)
             phases[f"{phase}_phase_ms_one_lane_launches"] = cuda_ms(
                 lambda _: [ops.pd_step(*a, **kw) for a in singles], reps=20)
-    plain_ms = cuda_ms(lambda _: plain_step(*args, **kw), reps=2)
+    if name is None:
+        def plain():
+            return plain_step(*args, **kw)
+    else:
+        def plain():
+            return [torch.stack(t) for t in zip(*[plain_step(*a, **kw)
+                                                   for a in singles])]
+    plain_ms = cuda_ms(lambda _: plain(), reps=2)
     step_got = ops.pd_step(*args, **kw)
-    step_want = plain_step(*args, **kw)
+    step_want = plain()
     dw = max_diff(step_got[0], step_want[0])
     du = max_diff(step_got[1], step_want[1])
     err = max(dw, du)
@@ -1649,7 +2003,8 @@ def lane_kernel_entry(torch, dev, problem, lams, store, launches: int,
     require(dw <= lim_w and du <= lim_u,
             f"lane kernel vs plain at full size {row}")
     require(ident, f"lane launch vs one-lane launches at full size {row}")
-    if problem.loss.name == "squared" and store == torch.float32:
+    if (problem.loss.name == "squared" and store == torch.float32
+            and n <= 16):
         # the block against the plain version: within SOLVE_TOL, or no
         # further than twice the plain version's own float32 drift from
         # float64 over the block (a lane at lambda 0.1 has a dual box
@@ -1671,7 +2026,7 @@ def lane_kernel_entry(torch, dev, problem, lams, store, launches: int,
             require(row[f"block_max_abs_d{key}"] <= row[f"block_limit_{key}"],
                     f"lane block vs plain at full size {row}")
         del want, args64, exact
-    name = {v: k for k, v in LANE_KERNELS.items()}[
+    name = name or {v: k for k, v in LANE_KERNELS.items()}[
         f"{problem.loss.name}/{str(store).removeprefix('torch.')}"]
     entry = dict(KERNELS[name], launches=launches, max_abs_err=err, ms=ms,
                  plain_ms=plain_ms, bound_ms=row["bound_ms"],
@@ -1681,17 +2036,27 @@ def lane_kernel_entry(torch, dev, problem, lams, store, launches: int,
     return row, entry
 
 
-def path_run(torch, dev, problem, lams, cfg, w_true, *, dense=False):
+def path_run(torch, dev, problem, lams, cfg, w_true, *, dense=False,
+             dense_lanes=(), singles=None):
     """``solve_path`` with the fused lanes on ``problem``, timed, with its
     launches and peak memory; then the lanes alone from the same warm
     start (timed: iterations per second per lane and for the sweep) and
-    each lane against a one-lane fused solve from that start
-    (bit-identical, or within PATH_TOL), and, with ``dense``, the dense
-    path's sweep (1e-4 on w, rtol 1e-4 on the objective)."""
+    each lane (or the lanes ``singles``) against a one-lane fused solve
+    from that start (bit-identical, or within PATH_TOL), and, with
+    ``dense``, the dense
+    path's sweep (1e-4 on w, rtol 1e-4 on the objective); the lanes
+    ``dense_lanes`` against one-lane dense solves from the same start
+    (1e-4 on w, rtol 1e-4 on the objective: where the dense path's lanes
+    would not fit the card)."""
     from repro_torch.api import backends, solve_path
     from repro_torch.engine import capped, default_warm_lam
+    from repro_torch.kernels.pd_step import plan_variant, variant_key
 
-    variant = f"{problem.loss.name}/{cfg.dtype}"
+    n = problem.num_features
+    kind = {"squared": 0, "lasso": 1, "logistic": 2}[problem.loss.name]
+    variant = variant_key(problem.loss.name, getattr(torch, cfg.dtype), n,
+                          plan_variant(kind, n, problem.data.x.shape[-2],
+                                       len(lams)) == "staged")
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     reset_launches()
@@ -1703,6 +2068,9 @@ def path_run(torch, dev, problem, lams, cfg, w_true, *, dense=False):
     peak = torch.cuda.max_memory_allocated()
     warm_iters = capped(cfg.warm_iters, cfg.metric_every)
     final_iters = capped(cfg.final_iters, cfg.metric_every)
+    # the path's duals are not compared: free them (~8 GB at n = 32 on
+    # the full-size graph) before the lanes run again
+    res = dataclasses.replace(res, u=None)
     lane_launches = launches["lanes"]["fused_pd_step"].get(variant, 0)
     # one launch per metric block on a whole-graph layout, else per step
     per = (cfg.metric_every
@@ -1725,6 +2093,7 @@ def path_run(torch, dev, problem, lams, cfg, w_true, *, dense=False):
         warm.u.expand((len(lams),) + tuple(warm.u.shape)), problem.graph,
         lam_col)
     final_cfg = cfg.replace(continuation=False, num_iters=final_iters)
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     lanes = backends._solve_fused(problem, final_cfg, w0=warm.w, u0=u0_b,
@@ -1733,8 +2102,10 @@ def path_run(torch, dev, problem, lams, cfg, w_true, *, dense=False):
     lanes_s = time.perf_counter() - t0
     require(torch.equal(lanes.w, res.w), f"{variant}: the lanes alone "
             "differ from solve_path's")
+    del lanes
     singles_s, dw_single, identical = 0.0, 0.0, True
-    for k, lam in enumerate(lams):
+    for k in (range(len(lams)) if singles is None else singles):
+        lam = lams[k]
         t0 = time.perf_counter()
         one = backends._solve_fused(problem.with_lam(float(lam)), final_cfg,
                                     w0=warm.w, u0=u0_b[k], w_true=w_true)
@@ -1752,7 +2123,9 @@ def path_run(torch, dev, problem, lams, cfg, w_true, *, dense=False):
            "iterations_per_s_per_lane": final_iters / lanes_s,
            "iterations_per_s_sweep": len(lams) * final_iters / lanes_s,
            "one_lane_solves_seconds": singles_s,
-           "one_lane_iterations_per_s": len(lams) * final_iters / singles_s,
+           "one_lane_iterations_per_s":
+               (len(lams) if singles is None else len(singles))
+               * final_iters / singles_s,
            "max_abs_dw_vs_one_lane_solves": dw_single,
            "bit_identical_to_one_lane_solves": identical,
            "objective_last": res.objective[:, -1].tolist(),
@@ -1761,6 +2134,19 @@ def path_run(torch, dev, problem, lams, cfg, w_true, *, dense=False):
         row["mse_last"] = res.mse[:, -1].tolist()
     require(dw_single <= PATH_TOL,
             f"{variant}: a lane against its one-lane solve {dw_single}")
+    for k in dense_lanes:
+        one = backends._solve_dense(
+            problem.with_lam(float(lams[k])), final_cfg.replace(
+                backend="dense", dtype="float32"),
+            w0=warm.w, u0=u0_b[k], w_true=w_true)
+        dw = max_diff(one.w, res.w[k])
+        obj_rel = float(((one.objective - res.objective[k]).abs()
+                         / one.objective.abs()).max())
+        row.setdefault("dense_lanes", {})[str(k)] = {
+            "max_abs_dw": dw, "objective_max_rel": obj_rel}
+        require(dw <= SOLVE_TOL and obj_rel <= 1e-4,
+                f"{variant} lane {k} vs a dense one-lane solve {dw}, "
+                f"{obj_rel}")
     if dense:
         t0 = time.perf_counter()
         ref = solve_path(problem, lams, cfg.replace(backend="dense"),
@@ -1777,22 +2163,26 @@ def path_run(torch, dev, problem, lams, cfg, w_true, *, dense=False):
 
 def phase_path_full_size(torch, dev, big, w_true, others) -> list:
     """``solve_path`` with ``backend="pallas"`` (the fused lanes) at full
-    size over PATH_LAMS: the squared loss in float32 (3000 warm + 1000
+    size over PATH_LAMS: the squared loss in float32 (500 warm + 500
     final iterations), against one-lane solves and the dense path's
     sweep, and in bf16 storage; the lasso and logistic instances of
-    ``full_size_variants`` in float32 (1000 + 1000); each against
-    one-lane solves, and each lane kernel alone.
+    ``full_size_variants`` in float32 (300 + 300); each against one-lane
+    solves, and each lane kernel alone.  (Depths cut to leave the
+    script's time to the wide and streamed phases.)
     Returns the kernels' entries."""
     from repro_torch.api import SolverConfig
 
     t0 = time.perf_counter()
-    cfg = SolverConfig(backend="pallas", rho=1.9, metric_every=100)
+    cfg = SolverConfig(backend="pallas", rho=1.9, metric_every=100,
+                       warm_iters=500, final_iters=500)
     runs, entries = [], []
     for problem, truth, run_cfg, dense in (
             (big, w_true, cfg, True),
             (big, w_true, cfg.replace(dtype="bfloat16"), False),
-            (*others["lasso"], cfg.replace(warm_iters=1000), False),
-            (*others["logistic"], cfg.replace(warm_iters=1000), False)):
+            (*others["lasso"], cfg.replace(warm_iters=300, final_iters=300),
+             False),
+            (*others["logistic"], cfg.replace(warm_iters=300,
+                                              final_iters=300), False)):
         row, launches = path_run(torch, dev, problem, PATH_LAMS, run_cfg,
                                  truth, dense=dense)
         row["kernel"], entry = lane_kernel_entry(
@@ -1802,6 +2192,273 @@ def phase_path_full_size(torch, dev, big, w_true, others) -> list:
         entries.append(entry)
     emit({"phase": "path_full_size", "seconds": time.perf_counter() - t0,
           "runs": runs})
+    return entries
+
+
+def wide_instances(graph, assign, seed: int, n: int = WIDE_N,
+                   samples=(33, 3, 8), losses=("squared", "lasso",
+                                               "logistic")) -> dict:
+    """The three losses at ``n`` features on the full-size graph, drawn
+    on the card: squared with 33 samples a node from per-cluster N(0, 1)
+    weights, noiseless (more samples than features, as
+    ``make_clustered``'s m_i = 5 at n = 2: with fewer, the labeled nodes
+    fix only m of w's directions, the rest is flat, and a bf16 run ends
+    elsewhere in it: 2.0 of w's scale from dense float32 at n = 32 with
+    5 samples, in a probe run); lasso with 3 (the m_i < n regime) from
+    those weights with three in four zeroed, noise 0.05; logistic with 8
+    and Bernoulli labels of sigmoid(x^T w) (``samples`` overrides the
+    three counts, ``losses`` picks).  10% of the nodes labeled.  Returns
+    {loss: (Problem, w_true)}."""
+    import torch
+    from repro_torch.api import Problem
+    from repro_torch.core.losses import NodeData
+
+    v, dev = graph.num_nodes, graph.device
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    levels = rng.standard_normal((2, n)).astype(np.float32)
+    sparse = levels * (rng.random((2, n)) < 0.25)
+    cluster = torch.from_numpy(np.asarray(assign) % 2).to(dev)
+    labeled = np.zeros(v, np.float32)
+    labeled[rng.choice(v, size=v // 10, replace=False)] = 1.0
+    labeled = torch.from_numpy(labeled).to(dev)
+
+    def draw(m, weights):
+        w_true = torch.from_numpy(weights).to(dev)[cluster]
+        x = torch.randn((v, m, n), generator=gen, device=dev)
+        return x, w_true, torch.einsum("vmn,vn->vm", x, w_true)
+
+    m_sq, m_lasso, m_log = samples     # squared: more samples than n
+    out = {}
+    if "squared" in losses:
+        x, w_true, y = draw(m_sq, levels)
+        out["squared"] = (Problem.create(graph, NodeData(
+            x, y, torch.ones((v, m_sq), device=dev), labeled), 1e-3,
+            device=dev), w_true)
+    if "lasso" in losses:
+        x, w_true, y = draw(m_lasso, sparse)
+        y = y + 0.05 * torch.randn(y.shape, generator=gen, device=dev)
+        out["lasso"] = (Problem.create(graph, NodeData(
+            x, y, torch.ones((v, m_lasso), device=dev), labeled), 1e-2,
+            loss="lasso", device=dev, **LASSO_KW), w_true)
+    if "logistic" in losses:
+        x, w_true, logit = draw(m_log, levels)
+        y = (torch.rand(logit.shape, generator=gen, device=dev)
+             < torch.sigmoid(logit)).float()
+        out["logistic"] = (Problem.create(graph, NodeData(
+            x, y, torch.ones((v, m_log), device=dev), labeled), 1e-3,
+            loss="logistic", device=dev), w_true)
+    return out
+
+
+def route_seconds(torch, problem, iters: int) -> dict:
+    """Seconds of a float32 solve of ``iters`` iterations (one metric
+    block, prox set-up included) on the fused route and on the unfused
+    route (``fused=False``: the dense engine with the ``tv_prox`` and
+    ``batched_affine`` hooks), the route such a problem took on the card
+    before the kernel took any width and any sample count."""
+    from repro_torch.api import Solver, SolverConfig
+
+    out = {"iterations": iters}
+    for route, fused in (("fused", True), ("unfused", False)):
+        cfg = SolverConfig(backend="pallas", fused=fused, rho=1.9,
+                           num_iters=iters, metric_every=iters,
+                           compute_diagnostics=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = Solver(cfg).run(problem)
+        torch.cuda.synchronize()
+        out[f"{route}_seconds"] = time.perf_counter() - t0
+        require(bool(torch.isfinite(result.w).all()),
+                f"{route} route result not finite")
+        del result
+    out["unfused_over_fused"] = out["unfused_seconds"] / out["fused_seconds"]
+    return out
+
+
+def phase_wide_full_size(torch, dev, graph, assign) -> list:
+    """The wide variant at full size, on the full-size graph (its layout
+    planned once for every solve): a 6-lambda ``solve_path`` of the
+    squared instance of ``wide_instances`` at n = WIDE_N through the
+    fused lanes (30 + 30 iterations), its first and last lanes against
+    one-lane fused solves and its first against a one-lane dense solve;
+    then that instance in float32 (1000
+    iterations) and bfloat16 (200), lasso and logistic in float32 and
+    bfloat16 (20 iterations: the kernel takes ~0.17 s and ~0.23 s a step
+    for them here and the dense backend ~0.35 s and ~1.5 s, so the
+    script's time allows no more), each against the dense backend over
+    its whole budget, the float32 squared one with the float64 yardstick
+    (``full_size_solve``'s ``exact``); then both routes' times of a
+    ROUTE_ITERS-iteration lasso and logistic solve (``route_seconds``).
+    Each solve records the kernel's ms a step beside ``step_cost``'s
+    bound, the launches and the peak memory.  Returns the kernels'
+    entries."""
+    from repro_torch.api import SolverConfig
+
+    t0 = time.perf_counter()
+    wide = wide_instances(graph, assign, seed=2, losses=("squared",))
+    gen_s = time.perf_counter() - t0
+    # the λ path first, before the other instances are drawn: its lanes
+    # and the prox set-up of the solve over them hold ~50 GB at their
+    # peak, and the solves below fragment the allocator's cache (no
+    # certificate: six of them at n = 32 would add ~13 GB each)
+    problem, truth = wide["squared"]
+    path_cfg = SolverConfig(backend="pallas", rho=1.9, metric_every=10,
+                            warm_iters=30, final_iters=30,
+                            compute_diagnostics=False)
+    # the first and last lanes against one-lane solves: each such solve
+    # sets up its own prox (1M 32 x 32 inverses, seconds each)
+    ends = (0, len(PATH_LAMS) - 1)
+    path, launches = path_run(torch, dev, problem, PATH_LAMS, path_cfg,
+                              truth, dense_lanes=(0,), singles=ends)
+    torch.cuda.empty_cache()
+    path["kernel"], path_entry = lane_kernel_entry(
+        torch, dev, problem, PATH_LAMS, torch.float32, launches, 1.9, 10,
+        name="fused_pd_step[squared,f32,wide,lanes]")
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    wide.update(wide_instances(graph, assign, seed=2,
+                               losses=("lasso", "logistic")))
+    gen_s += time.perf_counter() - t1
+    fixed = SolverConfig(backend="pallas", rho=1.9, num_iters=1000)
+    rows, entries, dense = [], [], {}
+    for loss, dt, iters in (
+            ("squared", "float32", 1000), ("squared", "bfloat16", 200),
+            ("lasso", "float32", 20), ("lasso", "bfloat16", 20),
+            ("logistic", "float32", 20), ("logistic", "bfloat16", 20)):
+        problem, truth = wide[loss]
+        tag = "f32" if dt == "float32" else "bf16"
+        # a metric block of 5 iterations where the plain version, which
+        # the kernel is held to over one block, takes 0.16 s (lasso) and
+        # 1 s (logistic) an iteration
+        cfg = fixed.replace(dtype=dt, num_iters=iters,
+                            metric_every=100 if loss == "squared" else 5)
+        # each solve against the dense backend over its whole budget (a
+        # loss's f32 and bf16 solves share one dense solve where their
+        # budgets agree); the 1000-iteration float32 one with the float64
+        # yardstick
+        if dt == "float32":
+            dense.clear()
+        row, entry = full_size_solve(
+            torch, dev, cfg, problem, truth,
+            name=f"fused_pd_step[{loss},{tag},wide]", dense_iters=iters,
+            dense_cache=dense, exact=(loss == "squared" and dt == "float32"))
+        rows.append(row)
+        entries.append(entry)
+        torch.cuda.empty_cache()
+    del dense
+    routes = {loss: route_seconds(torch, wide[loss][0], ROUTE_ITERS)
+              for loss in ("lasso", "logistic")}
+    entries.append(path_entry)
+    emit({"phase": "wide_full_size", "seconds": time.perf_counter() - t0,
+          "generate_seconds": gen_s, "num_features": WIDE_N, "runs": rows,
+          "path": path, "routes": routes})
+    del wide
+    torch.cuda.empty_cache()
+    return entries
+
+
+def phase_wide_streamed(torch, dev) -> list:
+    """The wide variant with its prox parameters read from device memory
+    (past the staging plan), on ``make_clustered``'s recipe at 2,000
+    nodes: squared and lasso at n = 256 (P / Q alone 256 KB a node) and
+    logistic at n = 32 with 2,000 samples a node, float32, 20 iterations
+    each against the dense backend's 20.  Returns the kernels'
+    entries."""
+    from repro_torch.api import SolverConfig
+
+    t0 = time.perf_counter()
+    graph, _, _, assign = make_clustered(2000, seed=6, device=dev)
+    cases = {**wide_instances(graph, assign, seed=6, n=256,
+                              losses=("squared", "lasso")),
+             **wide_instances(graph, assign, seed=7, n=32,
+                              samples=(5, 3, 2000), losses=("logistic",))}
+    # no certificate: its pseudo-inverse at n = 256 is past the sym_pinv
+    # kernel's widths, and the plain version's Jacobi takes ~10 s there
+    cfg = SolverConfig(backend="pallas", rho=1.9, metric_every=10,
+                       num_iters=20, compute_diagnostics=False)
+    rows, entries = [], []
+    for loss, (problem, truth) in cases.items():
+        row, entry = full_size_solve(
+            torch, dev, cfg, problem, truth,
+            name=f"fused_pd_step[{loss},f32,wide,streamed]", dense_iters=20)
+        require(row["variant"].endswith("/wide/streamed"),
+                f"{loss}: not the streamed wide variant {row['variant']}")
+        rows.append(row)
+        entries.append(entry)
+    emit({"phase": "wide_streamed", "seconds": time.perf_counter() - t0,
+          "runs": rows})
+    return entries
+
+
+def many_samples_instance(torch, dev):
+    """Logistic nodes of MANY_SAMPLES samples at n = 2, past the kernel's
+    staging plan, on ``make_clustered``'s recipe at MANY_NODES nodes
+    (x, y and the mask ~5.2 GB), drawn on the card: Bernoulli labels of
+    sigmoid(x^T w) for the per-cluster (2, 2) / (-2, 2) weights, 10% of
+    the nodes labeled.  Returns (Problem, w_true)."""
+    from repro_torch.api import Problem
+    from repro_torch.core.losses import NodeData
+
+    graph, data, w_true, _ = make_clustered(MANY_NODES, seed=5, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((MANY_NODES, MANY_SAMPLES, 2), generator=gen,
+                    device=dev)
+    logit = torch.einsum("vmn,vn->vm", x, w_true)
+    y = (torch.rand(logit.shape, generator=gen, device=dev)
+         < torch.sigmoid(logit)).float()
+    del logit
+    mask = torch.ones((MANY_NODES, MANY_SAMPLES), device=dev)
+    return Problem.create(graph, NodeData(x, y, mask, data.labeled_mask),
+                          1e-3, loss="logistic", device=dev), w_true
+
+
+def phase_many_samples_full_size(torch, dev) -> list:
+    """The streamed register-tile variant at full size: logistic nodes of
+    MANY_SAMPLES samples (``many_samples_instance``), fused in float32
+    and bfloat16, MANY_ITERS iterations each, against the dense backend's
+    MANY_ITERS; and a 6-lambda ``solve_path`` through the fused lanes
+    (streamed too; 10 + 10 iterations), each lane against
+    a one-lane fused solve and the first against a one-lane dense solve.
+    The depth is cut to what the script's time allows: a step takes the
+    kernel ~0.2 s here (one thread a node re-reads its 256 KB of samples
+    in each Newton step), the dense backend ~0.6 s and the plain version
+    ~0.4 s.  Then both routes' times of a ROUTE_ITERS-iteration solve
+    (``route_seconds``).  Returns the kernels' entries."""
+    from repro_torch.api import SolverConfig
+
+    t0 = time.perf_counter()
+    problem, truth = many_samples_instance(torch, dev)
+    gen_s = time.perf_counter() - t0
+    cfg = SolverConfig(backend="pallas", rho=1.9, metric_every=10,
+                       num_iters=MANY_ITERS)
+    rows, entries, dense = [], [], {}
+    for dt, tag in (("float32", "f32"), ("bfloat16", "bf16")):
+        row, entry = full_size_solve(
+            torch, dev, cfg.replace(dtype=dt), problem, truth,
+            name=f"fused_pd_step[logistic,{tag},streamed]",
+            dense_iters=MANY_ITERS, dense_cache=dense)
+        rows.append(row)
+        entries.append(entry)
+    del dense
+    routes = route_seconds(torch, problem, ROUTE_ITERS)
+    path_cfg = SolverConfig(backend="pallas", rho=1.9, metric_every=10,
+                            warm_iters=10, final_iters=10)
+    row, launches = path_run(torch, dev, problem, PATH_LAMS, path_cfg,
+                             truth, dense_lanes=(0,),
+                             singles=(0, len(PATH_LAMS) - 1))
+    row["kernel"], entry = lane_kernel_entry(
+        torch, dev, problem, PATH_LAMS, torch.float32, launches, 1.9, 2,
+        name="fused_pd_step[logistic,f32,streamed,lanes]")
+    entries.append(entry)
+    emit({"phase": "many_samples_full_size",
+          "seconds": time.perf_counter() - t0, "generate_seconds": gen_s,
+          "nodes": MANY_NODES, "samples_per_node": MANY_SAMPLES,
+          "data_bytes": sum(t.numel() * t.element_size() for t in (
+              problem.data.x, problem.data.y, problem.data.sample_mask)),
+          "runs": rows, "path": row, "routes": routes})
+    del problem
+    torch.cuda.empty_cache()
     return entries
 
 
@@ -2192,19 +2849,43 @@ def response_row(resp, io: dict | None = None) -> dict:
     return {**row, **(io or {})}
 
 
+def pinv_cost(n: int, matrices: int) -> dict:
+    """The least time on an H100 for ``matrices`` n x n pseudo-inverses
+    by the kernel's Jacobi: each matrix read and written once, against
+    its sweeps' float operations (a round rotates n / 2 pairs over the
+    columns of A and V and the rows of A, 6 operations an entry pair; n
+    - 1 rounds a sweep) and the product V diag(1 / lambda) V^T."""
+    from repro_torch.engine.step import jacobi_sweeps
+
+    rounds = n - 1 + n % 2
+    per_sweep = rounds * (n // 2) * n * 3 * 6
+    flops = matrices * (jacobi_sweeps(n) * per_sweep + 3 * n ** 3)
+    return bound(4 * n * n * matrices, 4 * n * n * matrices, flops)
+
+
 def certificate_cost(torch, dev) -> list:
-    """The optimality-gap certificate (``engine.step.optimality_gap``,
-    its pseudo-inverse ``sym_pinv``: Jacobi in tensor ops, 8 sweeps past
-    n = 2) timed on the card at n = 2 and n = 16 features: CUDA-event ms
-    and host wall ms a call, beside ``torch.linalg.pinv`` of the same
-    covariances (which checks its status on the host)."""
+    """The optimality-gap certificate (``engine.step.optimality_gap``) on
+    the card at n = 2, 16, 32 and 64 features on 1000 nodes and n = 16 on
+    100,000: its pseudo-inverse, the ``sym_pinv`` kernel, against its
+    plain version (``engine.step.sym_pinv``, Jacobi in tensor ops; the
+    kernel within 1e-4 of the float64 pinv relative to each matrix's
+    scale, or twice the plain version's own distance from it) and
+    ``torch.linalg.pinv`` (which checks its status on the host), CUDA-event
+    ms of each and the kernel's bound; the certificate's ms and host wall
+    ms a call, and one certificate under ``set_sync_debug_mode("error")``
+    (no host read); and at the full-size solve's shape.  Returns (rows, the kernel's entry for the kernels'
+    line: at the main path's shapes, n = 2 on FULL_NODES nodes, the
+    full-size solve's certificate)."""
     from repro_torch.api import Problem
     from repro_torch.core.graph import chain_graph
     from repro_torch.core.losses import NodeData
-    from repro_torch.engine.step import optimality_gap
+    from repro_torch.engine.step import (jacobi_sweeps, optimality_gap,
+                                         sym_pinv)
+    from repro_torch.kernels import sym_pinv as kernel
 
-    rows = []
-    for v, n in ((1000, 2), (1000, 16), (100_000, 16)):
+    rows, entry = [], None
+    for v, n in ((1000, 2), (1000, 16), (1000, 32), (1000, 64),
+                 (100_000, 16), (FULL_NODES, 2)):
         rng = np.random.default_rng(v + n)
         x = rng.standard_normal((v, n + 4, n)).astype(np.float32)
         y = rng.standard_normal((v, n + 4)).astype(np.float32)
@@ -2214,24 +2895,60 @@ def certificate_cost(torch, dev) -> list:
             labeled_mask=torch.ones(v)).to(dev), lam=1e-2)
         w = torch.randn((v, n), device=dev)
         u = 0.01 * torch.randn((v - 1, n), device=dev)
-        q = torch.einsum("vmn,vmk->vnk", problem.data.x, problem.data.x)
+        q = (torch.einsum("vmn,vmk->vnk", problem.data.x, problem.data.x)
+             / (n + 4)).contiguous()
+        sweeps = jacobi_sweeps(n)
+        got = kernel.sym_pinv(q, sweeps=sweeps)
+        want = sym_pinv(q)
+        lib = torch.linalg.pinv(q)
+        # the float64 yardstick on the host (cuSOLVER's batched
+        # eigensolver refuses a batch of a million)
+        exact = torch.linalg.pinv(
+            q.double().cpu(), rtol=10 * n * float(np.finfo(np.float32).eps),
+            hermitian=True)
+        scale = exact.abs().amax((1, 2))
+
+        def dist(a, b):
+            return float(((a.double().cpu() - b.double().cpu()).abs()
+                          .amax((1, 2)) / scale).max())
+        err, err_lib = dist(got, want), dist(got, lib)
+        err_exact, plain_exact = dist(got, exact), dist(want, exact)
         optimality_gap(problem, w, u)
         torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        optimality_gap(problem, w, u)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t1
-        rows.append({"nodes": v, "features": n,
-                     "ms": cuda_ms(lambda _: optimality_gap(problem, w, u),
-                                   reps=3),
-                     "wall_ms": wall * 1e3,
-                     "pinv_ms": cuda_ms(lambda _: torch.linalg.pinv(q),
-                                        reps=3)})
-        del problem, q, w, u
-    return rows
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t1 = time.perf_counter()
+            optimality_gap(problem, w, u)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        row = {"nodes": v, "features": n, "sweeps": sweeps,
+               "kernel_max_rel_err_vs_plain": err,
+               "kernel_max_rel_err_vs_pinv": err_lib,
+               "kernel_max_rel_err_vs_f64": err_exact,
+               "plain_max_rel_err_vs_f64": plain_exact,
+               "kernel_ms": cuda_ms(lambda _: kernel.sym_pinv(
+                   q, sweeps=sweeps), reps=10),
+               "plain_ms": cuda_ms(lambda _: sym_pinv(q), reps=3),
+               "pinv_ms": cuda_ms(lambda _: torch.linalg.pinv(q), reps=3),
+               **pinv_cost(n, v),
+               "ms": cuda_ms(lambda _: optimality_gap(problem, w, u),
+                             reps=3),
+               "wall_ms": wall * 1e3}
+        rows.append(row)
+        require(err_exact <= max(1e-4, 2.0 * plain_exact),
+                f"sym_pinv kernel vs plain version {row}")
+        if (v, n) == (FULL_NODES, 2):
+            entry = dict(KERNELS["sym_pinv"], max_abs_err=err,
+                         ms=row["kernel_ms"], plain_ms=row["plain_ms"],
+                         bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                         library_ms=row["pinv_ms"])
+        del problem, q, w, u, got, want, lib, exact
+    return rows, entry
 
 
-def phase_serving_s5(torch, dev) -> None:
+def phase_serving_s5(torch, dev) -> dict:
     """The solve service (``repro_torch.serving``) on the card: a dense
     ``DEFAULT_CONFIG`` service and a ``pallas`` ``fused=True`` one on the
     §5 instance at lambda 1e-2.  Each answers a cold request, a warm one
@@ -2246,7 +2963,9 @@ def phase_serving_s5(torch, dev) -> None:
     chain problems (against ``solve_many``: the lane kernels on the
     ``pallas`` service).  A fused service's plan misses (its cold and
     patch requests) plan the structure's layout on the host, so they run
-    outside the sync check."""
+    outside the sync check.  Then the certificate's cost
+    (``certificate_cost``).  Returns the ``sym_pinv`` kernel's entry for
+    the kernels' line."""
     import dataclasses
 
     from repro_torch.api import Problem, Solver, solve_many, solve_path
@@ -2370,7 +3089,7 @@ def phase_serving_s5(torch, dev) -> None:
             require(lanes["tv_prox"].get("float32", 0) > 0
                     and lanes["batched_affine"].get("per_lane", 0) > 0,
                     f"serving §5 solve_batch lane launches {batch_launches}")
-    cert = certificate_cost(torch, dev)
+    cert, cert_entry = certificate_cost(torch, dev)
     emit({"phase": "serving_s5", "seconds": time.perf_counter() - t0,
           "certificate": cert,
           "instance": "make_sbm_regression(seed=0), lam 1e-2; chains of 24",
@@ -2378,6 +3097,7 @@ def phase_serving_s5(torch, dev) -> None:
                      "metric_every": DEFAULT_CONFIG.metric_every,
                      "rho": DEFAULT_CONFIG.rho, "tol": DEFAULT_CONFIG.tol},
           **rows})
+    return cert_entry
 
 
 def phase_serving_full_size(torch, big, assign, full_tol: float,
@@ -2587,18 +3307,14 @@ def phase_serving_full_size(torch, big, assign, full_tol: float,
             < rows["cold"]["iterations"], f"serving 1M warm {rows['warm']}")
 
 
-def phase_wide_features(torch, dev) -> None:
-    """A squared problem with n = 17 features (past the fused kernel's
-    widest register tile): ``Solver(backend="pallas")`` routes it to the
-    unfused path on the card and solves it, within 1e-4 of the dense
-    backend, where the earlier slices raised in the kernel's wrapper."""
-    from repro_torch.api import Problem, Solver, SolverConfig, backends
+def wide_problem(torch, dev, n: int):
+    """A squared problem with ``n`` features a node on a 40-node SBM (24
+    samples a node, every other node labeled): the CPU tests'
+    ``_wide_problem`` on the card."""
+    from repro_torch.api import Problem
     from repro_torch.core.graph import sbm_graph
     from repro_torch.core.losses import NodeData
-    from repro_torch.kernels.pd_step import MAX_FEATURES
 
-    t0 = time.perf_counter()
-    n = MAX_FEATURES + 1
     g, assign = sbm_graph(np.random.default_rng(17), (20, 20), 0.3, 0.05,
                           device=dev)
     rng = np.random.default_rng(18)
@@ -2610,21 +3326,61 @@ def phase_wide_features(torch, dev) -> None:
                     torch.ones((40, 24)),
                     torch.from_numpy((np.arange(40) % 2 == 0).astype(
                         np.float32))).to(dev)
-    problem = Problem.create(g, data, 1e-2, device=dev)
-    cfg = SolverConfig(backend="pallas", num_iters=200, rho=1.9,
-                       metric_every=50)
-    reset_launches()
-    got = Solver(cfg).run(problem)
-    torch.cuda.synchronize()
-    launches = read_launches()
-    want = Solver(cfg.replace(backend="dense")).run(problem)
-    dw = max_diff(got.w, want.w)
+    return Problem.create(g, data, 1e-2, device=dev)
+
+
+def phase_wide_features(torch, dev) -> None:
+    """Squared problems with n = 17 and 33 features (past the fused
+    kernel's widest register tile): ``Solver(backend="pallas")`` takes
+    the fused route on the card (the wide variant: fused launches under
+    the ``"/wide"`` key, no ``tv_prox``), in float32 within 1e-4 of the
+    dense backend and in bfloat16 within the reference's bf16 gates
+    (final objective 0.15 relative, ``w`` 0.5 of its scale); and a tol
+    solve at n = 33 whose fused block is captured under the tol engine's
+    IF node, under ``set_sync_debug_mode("error")``, stopping where the
+    plain loop stops."""
+    from repro_torch.api import Solver, SolverConfig, backends
+
+    t0 = time.perf_counter()
+    rows = []
+    for n in (17, 33):
+        problem = wide_problem(torch, dev, n)
+        cfg = SolverConfig(backend="pallas", num_iters=200, rho=1.9,
+                           metric_every=50)
+        want = Solver(cfg.replace(backend="dense")).run(problem)
+        for dt in ("float32", "bfloat16"):
+            reset_launches()
+            got = Solver(cfg.replace(dtype=dt)).run(problem)
+            torch.cuda.synchronize()
+            launches = read_launches()
+            dw = max_diff(got.w, want.w)
+            obj_rel = float((got.objective[-1] - want.objective[-1]).abs()
+                            / want.objective[-1].abs())
+            w_rel = dw / float(want.w.abs().max())
+            key = f"squared/{dt}/wide"
+            row = {"num_features": n, "dtype": dt, "launches": launches,
+                   "fused": backends._should_fuse(problem, cfg),
+                   "max_abs_dw_vs_dense": dw,
+                   "objective_rel_vs_dense": obj_rel}
+            rows.append(row)
+            require(launches["fused_pd_step_variants"].get(key, 0) > 0
+                    and launches["tv_prox"] == 0,
+                    f"n = {n} {dt}: not the fused wide variant {launches}")
+            if dt == "float32":
+                require(dw <= SOLVE_TOL, f"n = {n} fused vs dense |dw| {dw}")
+            else:
+                require(abs(obj_rel) <= 0.15 and w_rel <= 0.5,
+                        f"n = {n} bf16 vs dense gates {row}")
+    tol_cfg = SolverConfig(backend="pallas", num_iters=2000, rho=1.9,
+                           metric_every=10, tol=1e-3)
+    tol_row, _ = tol_solve(torch, wide_problem(torch, dev, 33), tol_cfg)
     emit({"phase": "wide_features", "seconds": time.perf_counter() - t0,
-          "num_features": n, "fused": backends._should_fuse(problem, cfg),
-          "launches": launches, "max_abs_dw_vs_dense": dw})
-    require(launches["fused_pd_step"] == 0 and launches["tv_prox"] > 0,
-            f"n = {n}: not the unfused path {launches}")
-    require(dw <= SOLVE_TOL, f"n = {n} unfused vs dense |dw| = {dw}")
+          "runs": rows, "tol": {"num_features": 33, "tol": 1e-3,
+                                **tol_row}})
+    executed = tol_row["device_executions"]["fused_pd_step"]
+    require(tol_row["fetches"] == 1
+            and executed >= tol_row["iterations"] // 10 > 1,
+            f"n = 33 tol: the captured wide block did not run {tol_row}")
 
 
 LANE_WINDOW_SAMPLES = 14523     # F1: fits the kernel's plan as one lane only
@@ -2637,9 +3393,11 @@ FED_TOL = 1e-6                  # federated sync vs dense: w, objective rel
 def phase_lane_faults(torch, dev) -> None:
     """Two lambda paths that once raised on the card (ROADMAP §3, F1 and
     F2 under "Fixed").  F1: a logistic problem whose nodes (14,523
-    samples at n = 2) fit the kernel's plan as one lane but not as six;
-    ``solve_path`` over six lambdas must route to the unfused lanes (no
-    fused lane launch) and solve, within 1e-4 of the dense path.  F2: the
+    samples at n = 2) fit the kernel's staging plan as one lane but not
+    as six; ``solve_path`` over six lambdas runs the fused lanes with the
+    parameters streamed, each lane bit-identical to a one-lane (staged)
+    fused solve from the path's warm start, within 1e-4 of the dense
+    path.  F2: the
     §5 instance over 4097 lambdas through the fused lanes: each step
     launches a group of MAX_LANES lanes and a group of one, and the
     first and last lanes equal one-lane fused solves from the same warm
@@ -2658,20 +3416,34 @@ def phase_lane_faults(torch, dev) -> None:
         rng, g, np.where(assign[:, None] % 2 == 0, [2.0, 2.0], [-2.0, 2.0]),
         samples_per_node=LANE_WINDOW_SAMPLES, num_labeled=20)
     problem = Problem.create(g, ds.data, 1e-2, loss="logistic", device=dev)
-    fits = {lanes: pd_step.stages_fit(problem.loss, 2, LANE_WINDOW_SAMPLES,
-                                      lanes) for lanes in (1, 6)}
-    require(fits == {1: True, 6: False}, f"F1 plan window {fits}")
-    cfg = SolverConfig(backend="pallas", rho=1.9, warm_iters=100,
-                       final_iters=100, metric_every=10)
+    fits = {lanes: pd_step.plan_variant(2, 2, LANE_WINDOW_SAMPLES, lanes)
+            for lanes in (1, 6)}
+    require(fits == {1: "staged", 6: "streamed"}, f"F1 plan window {fits}")
+    cfg = SolverConfig(backend="pallas", rho=1.9, warm_iters=30,
+                       final_iters=30, metric_every=10)
     reset_launches()
     got = solve_path(problem, PATH_LAMS, cfg)
     torch.cuda.synchronize()
     f1_launches = read_launches()
     want = solve_path(problem, PATH_LAMS, cfg.replace(backend="dense"))
     f1_dw = max_diff(got.w, want.w)
-    require(not f1_launches["lanes"]["fused_pd_step"]
-            and f1_launches["lanes"]["tv_prox"],
-            f"F1 path did not run the unfused lanes: {f1_launches}")
+    f1_warm = backends.solve_pallas(problem.with_lam(default_warm_lam(
+        float(np.max(PATH_LAMS)))), cfg.replace(num_iters=cfg.warm_iters,
+                                                compute_diagnostics=False))
+    f1_identical = {}
+    for k in (0, len(PATH_LAMS) - 1):
+        lam = float(PATH_LAMS[k])
+        u0 = problem.regularizer.project_dual(f1_warm.u, problem.graph, lam)
+        one = backends._solve_fused(problem.with_lam(lam), cfg.replace(
+            num_iters=cfg.final_iters, compute_diagnostics=False),
+            w0=f1_warm.w, u0=u0)
+        f1_identical[k] = bool(torch.equal(one.w, got.w[k]))
+    require(f1_launches["lanes"]["fused_pd_step"].get(
+                "logistic/float32/streamed", 0) > 0
+            and not f1_launches["lanes"]["tv_prox"],
+            f"F1 path did not run the streamed fused lanes: {f1_launches}")
+    require(all(f1_identical.values()),
+            f"F1 lanes vs one-lane fused solves {f1_identical}")
     require(f1_dw <= SOLVE_TOL, f"F1 path vs dense path |dw| = {f1_dw}")
 
     s5 = make_sbm_regression(seed=0)
@@ -2698,9 +3470,11 @@ def phase_lane_faults(torch, dev) -> None:
                             and torch.equal(one.objective, res.objective[k]))
     emit({"phase": "lane_faults", "seconds": time.perf_counter() - t0,
           "f1": {"loss": "logistic", "samples_per_node": LANE_WINDOW_SAMPLES,
-                 "stages_fit": {str(k): v for k, v in fits.items()},
+                 "variant": {str(k): v for k, v in fits.items()},
                  "lams": [float(x) for x in PATH_LAMS],
-                 "launches": f1_launches, "max_abs_dw_vs_dense_path": f1_dw},
+                 "launches": f1_launches, "max_abs_dw_vs_dense_path": f1_dw,
+                 "bit_identical_to_one_lane_solves": {
+                     str(k): v for k, v in f1_identical.items()}},
           "f2": {"lanes": F2_LANES, "max_lanes": pd_step.MAX_LANES,
                  "solve_path_seconds": f2_s, "launches": f2_launches,
                  "bit_identical_to_one_lane_solves": {
@@ -3177,8 +3951,10 @@ def time_fused_solve(root: Path, path: Path, reps: int = 3,
         torch.cuda.synchronize()
         rates.append((cfg.warm_iters + cfg.final_iters)
                      / (time.perf_counter() - t0))
-    return {**out, "iterations_per_s": rates,
-            "kernels": time_variants(torch, problems, lt, compact, device)}
+    out["kernels"] = time_variants(torch, problems, lt, compact, device)
+    if compact:
+        out["kernel_digests"] = kernel_digests(torch, device)
+    return {**out, "iterations_per_s": rates}
 
 
 def ab_main(argv: list) -> int:
@@ -3186,8 +3962,10 @@ def ab_main(argv: list) -> int:
     in turns (parent, change, change, parent), each in its own process
     on the saved full-size instances: the fused squared float32 solve,
     and every ``fused_pd_step`` variant's ms per step with its node and
-    edge phases (``time_variants``).  ``--time-solve ROOT NPZ``: one
-    such process."""
+    edge phases (``time_variants``), and the register-tile kernel's
+    outputs on ``kernel_vs_plain``'s inputs, which must be the same bits
+    in every process (``kernel_digests``).  ``--time-solve ROOT NPZ``:
+    one such process."""
     import subprocess as sp
 
     import torch
@@ -3218,9 +3996,14 @@ def ab_main(argv: list) -> int:
             emit(runs[-1])
     finally:
         path.unlink(missing_ok=True)
+    digests = [r.get("kernel_digests") for r in runs]
+    same = all(d == digests[0] for d in digests) and digests[0] is not None
     print(card_line(), flush=True)
     emit({"phase": "ab", "parent": str(parent),
-          "kind": torch.cuda.get_device_name(0), "runs": runs})
+          "kind": torch.cuda.get_device_name(0), "runs": runs,
+          "register_tile_bits_equal_across_checkouts": same})
+    require(same, "the register-tile kernel's bits differ between the "
+            "checkouts on kernel_vs_plain's inputs")
     return 0
 
 
@@ -3250,13 +4033,15 @@ def main() -> int:
     phase_build(torch)
     errs = phase_kernel_vs_plain(torch, dev)
     errs.update(phase_lanes_vs_plain(torch, dev))
+    errs.update(phase_wide_vs_plain(torch, dev))
     phase_paper_s5(torch, cfg)
     phase_zoo(torch, dev)
     phase_tol(torch)
     phase_wide_features(torch, dev)
     phase_lane_faults(torch, dev)
     phase_federated_s5(torch, dev)
-    phase_serving_s5(torch, dev)
+    cert_entry = phase_serving_s5(torch, dev)
+    errs["sym_pinv"] = cert_entry["max_abs_err"]
     # one full-size graph for every solve: the layout is planned once
     t0 = time.perf_counter()
     graph, data, w_true, assign = make_clustered(FULL_NODES, seed=0,
@@ -3264,9 +4049,15 @@ def main() -> int:
     others = loss_instances(graph, assign, seed=1)
     gen_s = time.perf_counter() - t0
     big = Problem.create(graph, data, 1e-3)
-    entry, full_size_rate, plan_s = phase_full_size(torch, dev, cfg, big,
-                                                    w_true, gen_s)
-    kernels = [entry]
+    entry, full_size_rate, plan_s, cert_launches = phase_full_size(
+        torch, dev, cfg, big, w_true, gen_s)
+    kernels = [entry, dict(cert_entry, launches=cert_launches)]
+    # the wide phase's λ path holds ~54 GB at its peak: before the tol
+    # engines' captured graphs keep their memory pool, from an emptied
+    # allocator cache
+    torch.cuda.empty_cache()
+    kernels += phase_wide_full_size(torch, dev, graph, assign)
+    torch.cuda.empty_cache()
     phase_obs_full_size(torch, cfg, big, w_true, full_size_rate)
     phase_federated_full_size(torch, big, w_true)
     kernels += phase_full_size_variants(torch, dev, cfg, big, w_true, others)
@@ -3277,6 +4068,10 @@ def main() -> int:
     kernels += phase_path_full_size(torch, dev, big, w_true, others)
     kernels += phase_path_tol_full_size(torch, dev, big)
     kernels += phase_many_full_size(torch, dev, graph, assign)
+    del big, others, data, w_true
+    torch.cuda.empty_cache()
+    kernels += phase_wide_streamed(torch, dev)
+    kernels += phase_many_samples_full_size(torch, dev)
     for k in kernels:
         k["max_abs_err"] = max(k["max_abs_err"], errs[k["name"]])
     emit({"kernels": kernels})

@@ -52,7 +52,8 @@ import torch
 from repro_torch.api.losses import Loss, SquaredLoss
 from repro_torch.api.problem import Problem, SolveResult, SolverConfig
 from repro_torch.api.regularizers import TotalVariation
-from repro_torch.core.graph import graph_signal_mse, plan_edge_blocks
+from repro_torch.core.graph import (batched_incidence_apply,
+                                    lane_signal_mse, plan_edge_blocks)
 from repro_torch.core.losses import NodeData
 from repro_torch.core.partition import gather_padded
 from repro_torch.engine import (BatchedDenseExecutor, DenseExecutor,
@@ -165,13 +166,52 @@ def lane_values(values, device) -> torch.Tensor:
                                    device=device) for v in values])
 
 
-def lane_metrics(fns: list) -> Callable:
-    """``metrics(w_b) -> (objective (L,), mse (L,))`` from one metric
-    function per lane, each evaluated on its lane: the one-problem
-    formulas, so every lane's trace is the one its own solve records."""
+#: the most float32 elements one lane group of :func:`lane_metrics`
+#: gathers at once (its D w, its predictions): 1 GiB
+LANE_METRICS_ELEMENTS = 1 << 28
+
+
+def lane_metrics(loss: Loss, reg, src, dst, weights, data, lam,
+                 w_true) -> Callable:
+    """``metrics(w_b) -> (objective (L,), mse (L,))`` of every lane at
+    once, as the reference vmaps its metric function: on the lane-stacked
+    state w_b (L, V, n), with ``lam`` (L,), the edge ends ``src`` /
+    ``dst`` and ``weights`` shared (E,) or per lane (L, E) and ``data``
+    shared or stacked.  MSE is the paper's eq. (24) over the unlabeled
+    (test) nodes of ``w_true`` (V, n), 0 without it.  Every sum runs in
+    ``core.graph.ordered_sum``'s order, so lane l's values are the bits
+    of a one-lane evaluation (:func:`make_metrics_fn`): a lane's trace is
+    the one its own solve records.  Lanes whose edge differences and
+    predictions pass ``LANE_METRICS_ELEMENTS`` together are evaluated in
+    groups of lanes (a lane's values do not depend on its group)."""
+    unlabeled = 1.0 - data.labeled_mask
+    stacked = src.ndim == 2
+
+    def group(w_b, sl):
+        def lanes_of(t):
+            return t[sl] if stacked else t
+        d = batched_incidence_apply(lanes_of(src), lanes_of(dst), w_b)
+        data_g = data if not stacked else NodeData(*(
+            getattr(data, k)[sl]
+            for k in ("x", "y", "sample_mask", "labeled_mask")))
+        obj = (loss.empirical_error(data_g, w_b)
+               + reg.lane_value(d, lanes_of(weights), lam[sl]))
+        if w_true is None:
+            mse = torch.zeros(w_b.shape[:1], dtype=torch.float32,
+                              device=w_b.device)
+        else:
+            mse = lane_signal_mse(w_b, w_true, unlabeled)
+        return obj, mse
+
     def metrics(w_b):
-        rec = [fn(w_b[i]) for i, fn in enumerate(fns)]
-        return tuple(torch.stack(col) for col in zip(*rec))
+        lanes, n = w_b.shape[0], w_b.shape[-1]
+        per_lane = max(src.shape[-1] * n, data.x.shape[-3] * data.x.shape[-2])
+        size = max(1, LANE_METRICS_ELEMENTS // per_lane)
+        if size >= lanes:
+            return group(w_b, slice(None))
+        parts = [group(w_b[g:g + size], slice(g, g + size))
+                 for g in range(0, lanes, size)]
+        return tuple(torch.cat(col) for col in zip(*parts))
 
     return metrics
 
@@ -189,20 +229,19 @@ def _batched_certificate(problems: list, w_b, u_b) -> dict:
 # ---------------------------------------------------------------------------
 
 def make_metrics_fn(loss: Loss, reg, graph, data, lam, w_true):
-    """``metrics(w) -> (objective, mse)`` — the one trace formula.
+    """``metrics(w) -> (objective, mse)`` — the one trace formula: one
+    lane of :func:`lane_metrics`, so a lambda path's lane records the
+    trace of its own solve bit for bit.
 
     MSE is the paper's eq. (24) over the unlabeled (test) nodes, 0 when
     no ground truth is supplied.
     """
-    unlabeled = 1.0 - data.labeled_mask
+    lanes = lane_metrics(loss, reg, graph.src, graph.dst, graph.weights,
+                         data, lane_values([lam], graph.device), w_true)
 
     def metrics(w):
-        obj = loss.empirical_error(data, w) + reg.value(graph, w, lam)
-        if w_true is None:
-            mse = torch.zeros((), dtype=torch.float32, device=w.device)
-        else:
-            mse = graph_signal_mse(w, w_true, unlabeled)
-        return obj, mse
+        obj, mse = lanes(w[None])
+        return obj[0], mse[0]
 
     return metrics
 
@@ -417,13 +456,12 @@ def _fused_window_fits(problem: Problem,
     The estimate is dtype-aware, as the reference's: the storage
     policy's itemsize scales the state and prox-parameter bytes
     (``EdgeBlockLayout.window_bytes``) and feeds the block-size
-    auto-tuner.  On the card the kernel must also take the problem, the
-    counterpart of the TPU's VMEM cap: its register tiles go to
-    ``kernels.pd_step.MAX_FEATURES`` features, and a launch's plan must
-    fit a block's shared memory (``kernels.pd_step.stages_fit``: a
-    logistic node with some ten thousand samples does not, and a launch
-    over ``lanes`` lanes takes one slot more a lane).  Such a problem
-    runs unfused.
+    auto-tuner.  On the card the kernel takes any feature count and any
+    samples a node (staging the prox parameters or streaming them,
+    ``kernels.pd_step.plan_variant``); what it cannot take, the
+    counterpart of the TPU's VMEM cap, is a wide logistic node whose
+    Hessian passes one warp's shared memory (n > 335,
+    ``kernels.pd_step.kernel_takes``).  Such a problem runs unfused.
     """
     num_samples = problem.data.x.shape[-2]
     try:
@@ -431,10 +469,8 @@ def _fused_window_fits(problem: Problem,
             num_samples, problem.num_features)
     except NotImplementedError:
         return False
-    if problem.device.type == "cuda" and (
-            problem.num_features > pd_kernel.MAX_FEATURES
-            or not pd_kernel.stages_fit(problem.loss, problem.num_features,
-                                        num_samples, lanes)):
+    if problem.device.type == "cuda" and not pd_kernel.kernel_takes(
+            problem.loss, problem.num_features, num_samples, lanes):
         return False
     itemsize = 4
     if config is not None:
@@ -498,9 +534,8 @@ def _fused_setup(graph, data, lam, w_true, *, loss, reg, layout,
     else:
         lams = lane_values(lam, graph.device)
         la2 = (lams[:, None] * lt.weights)[..., None]
-        metrics_fn = lane_metrics([
-            make_metrics_fn(loss, reg, graph, data, float(v), w_true)
-            for v in lam])
+        metrics_fn = lane_metrics(loss, reg, graph.src, graph.dst,
+                                  graph.weights, data, lams, w_true)
 
     def metrics(w_l):
         return metrics_fn(w_l[..., node_inv, :].to(torch.float32))
@@ -767,14 +802,14 @@ def _path_lanes(problem: Problem, lams, w_true, params=None) -> _Lanes:
     graph, data = problem.graph, problem.data
     if params is None:
         params = problem.loss.prox_setup(data, graph.primal_stepsizes())
+    lam = lane_values(lams, problem.device)
     return _Lanes(
         executor=BatchedDenseExecutor.shared(graph), loss=problem.loss,
-        reg=problem.regularizer,
-        lam=lane_values(lams, problem.device)[:, None],
+        reg=problem.regularizer, lam=lam[:, None],
         tau=graph.primal_stepsizes(), sigma=graph.dual_stepsizes(),
-        params=params, metrics=lane_metrics([
-            make_metrics_fn(problem.loss, problem.regularizer, graph, data,
-                            float(v), w_true) for v in lams]))
+        params=params, metrics=lane_metrics(
+            problem.loss, problem.regularizer, graph.src, graph.dst,
+            graph.weights, data, lam, w_true))
 
 
 def _batched_setup_impl(problems: list) -> tuple:
@@ -782,25 +817,33 @@ def _batched_setup_impl(problems: list) -> tuple:
     lane-stacked executor, data, stepsizes and prox parameters (one
     ``prox_setup`` over the stacked data; the reference vmaps it)."""
     graphs = [p.graph for p in problems]
-    data_b = NodeData(*(torch.stack([getattr(p.data, k) for p in problems])
-                        for k in ("x", "y", "sample_mask", "labeled_mask")))
+    data_b = _stacked_data(problems)
     tau_b = torch.stack([g.primal_stepsizes() for g in graphs])
     sigma_b = torch.stack([g.dual_stepsizes() for g in graphs])
     params_b = problems[0].loss.prox_setup(data_b, tau_b)
     return BatchedDenseExecutor.stacked(graphs), tau_b, sigma_b, params_b
 
 
+def _stacked_data(problems: list) -> NodeData:
+    """The problems' data stacked along a leading lane axis."""
+    return NodeData(*(torch.stack([getattr(p.data, k) for p in problems])
+                      for k in ("x", "y", "sample_mask", "labeled_mask")))
+
+
 def _many_lanes(problems: list) -> _Lanes:
     """The lanes of ``solve_many``'s batch: one problem per lane."""
     executor, tau_b, sigma_b, params_b = _batched_setup_impl(problems)
     p0 = problems[0]
+    lam = lane_values([p.lam for p in problems], p0.device)
+    graphs = [p.graph for p in problems]
     return _Lanes(
         executor=executor, loss=p0.loss, reg=p0.regularizer,
-        lam=lane_values([p.lam for p in problems], p0.device)[:, None],
-        tau=tau_b[..., None], sigma=sigma_b[..., None], params=params_b,
-        metrics=lane_metrics([
-            make_metrics_fn(p.loss, p.regularizer, p.graph, p.data, p.lam,
-                            None) for p in problems]))
+        lam=lam[:, None], tau=tau_b[..., None], sigma=sigma_b[..., None],
+        params=params_b, metrics=lane_metrics(
+            p0.loss, p0.regularizer, torch.stack([g.src for g in graphs]),
+            torch.stack([g.dst for g in graphs]),
+            torch.stack([g.weights for g in graphs]),
+            _stacked_data(problems), lam, None))
 
 
 def _lane_step(lanes: _Lanes, state, *, rho: float, clip_fn, affine_fn):

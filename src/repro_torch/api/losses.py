@@ -32,6 +32,7 @@ from typing import Callable, ClassVar
 
 import torch
 
+from repro_torch.core.graph import ordered_sum
 from repro_torch.core.losses import NodeData
 
 LOSSES: dict[str, type] = {}
@@ -75,16 +76,27 @@ def _soft_threshold(z: torch.Tensor, t) -> torch.Tensor:
     return torch.sign(z) * torch.clamp(torch.abs(z) - t, min=0.0)
 
 
+#: the widest system :func:`_chol_solve` unrolls (the fused kernel's
+#: register tile): its ops grow as n^3, so wider ones factor in one call
+UNROLLED_CHOLESKY = 16
+
+
 def _chol_solve(a: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """Batched SPD solve via an explicit unrolled Cholesky factorization.
 
     ``a`` (..., n, n) symmetric positive definite, ``rhs`` (..., n) ->
-    (..., n) solving ``a @ z = rhs`` per node.  The feature count n is
-    small and static, so the Cholesky-Banachiewicz recurrence and the two
-    triangular substitutions are Python loops of elementwise arithmetic
-    over the node axes, as in the reference.
+    (..., n) solving ``a @ z = rhs`` per node.  Up to
+    ``UNROLLED_CHOLESKY`` features the Cholesky-Banachiewicz recurrence
+    and the two triangular substitutions are Python loops of elementwise
+    arithmetic over the node axes, as in the reference; past it the
+    n^3 / 3 elementwise ops of that recurrence would be as many launches
+    on the card, so the factorization and the solves are one batched
+    call each (``cholesky_ex``: no status read on the host).
     """
     n = a.shape[-1]
+    if n > UNROLLED_CHOLESKY:
+        lo, _ = torch.linalg.cholesky_ex(a)
+        return torch.cholesky_solve(rhs[..., None], lo)[..., 0]
     lo = [[None] * n for _ in range(n)]
     for i in range(n):
         for j in range(i + 1):
@@ -109,6 +121,18 @@ def _chol_solve(a: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     return torch.stack(z, dim=-1)
 
 
+def feature_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Every sample's prediction x_j^T w_i: x (..., V, m, n) against w
+    (..., V, n) -> (..., V, m), a feature at a time (a multiply, then an
+    add, each exactly rounded), so a lane's predictions are the same bits
+    whatever the lane count (a batched matrix product picks its order
+    from the shape)."""
+    pred = x[..., 0] * w[..., None, 0]
+    for k in range(1, x.shape[-1]):
+        pred = pred + x[..., k] * w[..., None, k]
+    return pred
+
+
 @dataclasses.dataclass(frozen=True)
 class Loss:
     """Local loss interface (paper §4 template slot)."""
@@ -118,13 +142,17 @@ class Loss:
     kernel_safe: ClassVar[bool] = False
 
     def node_values(self, data: NodeData, w: torch.Tensor) -> torch.Tensor:
-        """Per-node loss L(X^(i), w^(i)): (V,)."""
+        """Per-node loss L(X^(i), w^(i)): (V,); w (..., V, n) with lanes
+        gives (..., V), data shared by the lanes or stacked with them."""
         raise NotImplementedError
 
     def empirical_error(self, data: NodeData,
                         w: torch.Tensor) -> torch.Tensor:
-        """E_hat(w) = sum_{i in M} L(X^(i), w^(i))  (paper eq. 2)."""
-        return torch.sum(self.node_values(data, w) * data.labeled_mask)
+        """E_hat(w) = sum_{i in M} L(X^(i), w^(i))  (paper eq. 2); () for
+        w (V, n), (L,) for lanes (L, V, n).  Summed in
+        :func:`~repro_torch.core.graph.ordered_sum`'s order, so each lane
+        gives the bits of its own evaluation."""
+        return ordered_sum(self.node_values(data, w) * data.labeled_mask, -1)
 
     def prox_setup(self, data: NodeData, tau: torch.Tensor) -> dict:
         """Precompute the batched primal-update parameters as a flat
@@ -163,9 +191,9 @@ class SquaredLoss(Loss):
     kernel_safe: ClassVar[bool] = True
 
     def node_values(self, data, w):
-        pred = torch.einsum("vmn,vn->vm", data.x, w)
+        pred = feature_dot(data.x, w)
         res = (data.y - pred) ** 2 * data.sample_mask
-        return torch.sum(res, dim=1) / data.counts()
+        return ordered_sum(res, -1) / data.counts()
 
     def prox_setup(self, data, tau):
         """Precompute eq. 21 as an affine map.
@@ -225,7 +253,7 @@ class LassoLoss(Loss):
 
     def node_values(self, data, w):
         return (SquaredLoss().node_values(data, w)
-                + self.alpha * torch.sum(torch.abs(w), dim=1))
+                + self.alpha * ordered_sum(torch.abs(w), -1))
 
     def prox_setup(self, data, tau):
         xm = data.x * data.sample_mask[..., None]
@@ -278,11 +306,11 @@ class LogisticLoss(Loss):
     kernel_safe: ClassVar[bool] = True
 
     def node_values(self, data, w):
-        logits = torch.einsum("vmn,vn->vm", data.x, w)
+        logits = feature_dot(data.x, w)
         # numerically-stable BCE with logits
         per = (torch.clamp(logits, min=0.0) - logits * data.y
                + torch.log1p(torch.exp(-torch.abs(logits))))
-        return torch.sum(per * data.sample_mask, dim=1) / data.counts()
+        return ordered_sum(per * data.sample_mask, -1) / data.counts()
 
     def prox_setup(self, data, tau):
         return {"x": data.x, "y": data.y, "mask": data.sample_mask,

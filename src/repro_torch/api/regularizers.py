@@ -18,6 +18,7 @@ from typing import Callable, ClassVar
 
 import torch
 
+from repro_torch.core.graph import ordered_sum
 from repro_torch.engine.step import ensure_column as _col
 
 REGULARIZERS: dict[str, type] = {}
@@ -82,6 +83,13 @@ class Regularizer:
     def value(self, graph, w: torch.Tensor, lam) -> torch.Tensor:
         raise NotImplementedError
 
+    def lane_value(self, d: torch.Tensor, weights: torch.Tensor,
+                   lam: torch.Tensor) -> torch.Tensor:
+        """:meth:`value` of every lane from its edge differences ``d`` =
+        D w (L, E, n), the edge weights (E,) or (L, E) and ``lam`` (L,):
+        (L,), summed in ``core.graph.ordered_sum``'s order."""
+        raise NotImplementedError
+
     def dual_prox(self, u: torch.Tensor, graph, lam, sigma, *,
                   clip_fn: Callable | None = None) -> torch.Tensor:
         """Resolvent of sigma * dg* at ``u`` (dual update, step 10)."""
@@ -114,6 +122,9 @@ class TotalVariation(Regularizer):
     def value(self, graph, w, lam):
         return lam * graph.total_variation(w)
 
+    def lane_value(self, d, weights, lam):
+        return lam * ordered_sum(weights * ordered_sum(torch.abs(d), -1), -1)
+
     def dual_prox(self, u, graph, lam, sigma, *, clip_fn=None):
         return _clip(u, lam * graph.weights, clip_fn)
 
@@ -139,6 +150,9 @@ class SquaredTV(Regularizer):
     def value(self, graph, w, lam):
         d = graph.incidence_apply(w)
         return 0.5 * lam * torch.sum(graph.weights * torch.sum(d * d, dim=1))
+
+    def lane_value(self, d, weights, lam):
+        return 0.5 * lam * ordered_sum(weights * ordered_sum(d * d, -1), -1)
 
     def dual_prox(self, u, graph, lam, sigma, *, clip_fn=None):
         del clip_fn                         # a scaling, not a clip

@@ -102,7 +102,8 @@ def _path_lane_fns(problem: Problem, lams, w_true, params, *, rho: float,
     ``advance(state) -> (state, residual (L,))`` runs one metric block of
     every lane at its own lambda, the residual its block-max eq.-11
     residual; ``lane_metrics(w_b)`` evaluates the dense engine's trace
-    formulas of each lane at its lambda."""
+    formulas of every lane at its lambda at once
+    (``backends.lane_metrics``)."""
     lanes: _Lanes = _path_lanes(problem, lams, w_true, params)
     advance = _lane_block_fn(lanes, rho=rho, metric_every=metric_every,
                              clip_fn=clip_fn, affine_fn=affine_fn)

@@ -723,6 +723,37 @@ def barabasi_albert_graph(rng: np.random.Generator, num_nodes: int,
                        num_nodes, device=device)
 
 
+def ordered_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """The sum of ``x`` over ``dim`` in one fixed order: a pairwise tree
+    of elementwise adds (zero-padded to a power of two, halves added
+    until one is left).  Each add is exactly rounded, so every row's sum
+    is the same bits whatever the other dimensions hold: lane l of a
+    lane-stacked evaluation equals a one-lane evaluation of its inputs,
+    on any device (a library reduction picks its order from the shape,
+    on the card from the number of rows)."""
+    x = x.movedim(dim, -1)
+    k = x.shape[-1]
+    if k == 0:
+        return x.new_zeros(x.shape[:-1])
+    width = 1 << (k - 1).bit_length()
+    if width != k:
+        x = torch.nn.functional.pad(x, (0, width - k))
+    while width > 1:
+        width //= 2
+        x = x[..., :width] + x[..., width:]
+    return x[..., 0]
+
+
+def lane_signal_mse(w_hat: torch.Tensor, w_true: torch.Tensor,
+                    mask: torch.Tensor) -> torch.Tensor:
+    """:func:`graph_signal_mse` of every lane of ``w_hat`` (L, V, n)
+    against ``w_true`` (V, n): (L,), summed in :func:`ordered_sum`'s
+    order."""
+    sq = ordered_sum((w_hat - w_true) ** 2, -1)
+    return ordered_sum(torch.where(mask != 0, sq, torch.zeros_like(sq)),
+                       -1) / w_hat.shape[-2]
+
+
 def graph_signal_mse(w_hat: torch.Tensor, w_true: torch.Tensor,
                      mask: torch.Tensor) -> torch.Tensor:
     """Paper eq. (24): (1/|V|) sum_{i in mask} ||wbar_i - what_i||_2^2."""

@@ -1,8 +1,10 @@
 // Fused primal-dual step for Hopper: the launch arguments shared by the
-// entry point (pd_step.cu) and the per-loss translation units
-// (pd_step.cu: squared, pd_step_lasso.cu, pd_step_logistic.cu), which
-// kernels/_build.py compiles in parallel.  See pd_step_impl.cuh for what
-// the kernel computes and how.
+// entry point (pd_step.cu) and the per-variant translation units
+// (pd_step.cu: squared, pd_step_lasso.cu, pd_step_logistic.cu,
+// pd_step_logistic_streamed.cu, pd_step_wide.cu, pd_step_wide_logistic.cu),
+// which kernels/_build.py compiles in parallel.  See pd_step_impl.cuh
+// (n <= 16) and pd_step_wide.cuh (n > 16) for what the kernel computes
+// and how.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -67,11 +69,26 @@ struct PdArgs {
   // kernel runs its iterations, launched or replayed from a CUDA graph (a
   // launch that finds the stop word clear writes and counts nothing)
   unsigned long long* executions;
+  // nonzero: read the prox parameters from device memory even where the
+  // staging plan fits (the streamed variant, which gives the staged
+  // variant's bits: for checking the two against each other)
+  int force_streamed;
 };
 
-// One per loss, each defined in its own translation unit.
+// The variants, each loss's in its own translation unit so that
+// kernels/_build.py compiles them in parallel: the register-tile kernel
+// (n <= 16) with staged prox parameters per loss, the logistic loss's
+// streamed one (parameters read from device memory), and the wide kernel
+// (n > 16) staged or streamed.
 cudaError_t pd_launch_squared(const PdArgs& a, cudaStream_t s);
 cudaError_t pd_launch_lasso(const PdArgs& a, cudaStream_t s);
 cudaError_t pd_launch_logistic(const PdArgs& a, cudaStream_t s);
+cudaError_t pd_launch_logistic_streamed(const PdArgs& a, cudaStream_t s);
+cudaError_t pd_launch_wide_squared(const PdArgs& a, cudaStream_t s,
+                                   bool staged);
+cudaError_t pd_launch_wide_lasso(const PdArgs& a, cudaStream_t s,
+                                 bool staged);
+cudaError_t pd_launch_wide_logistic(const PdArgs& a, cudaStream_t s,
+                                    bool staged);
 
 }  // namespace repro_pd

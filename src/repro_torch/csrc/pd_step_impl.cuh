@@ -103,8 +103,19 @@
 // scalar the wrapper zeroes.
 //
 // The feature count n is a runtime value held in a register tile of
-// MAXN = 2, 4, 8 or 16; the entry point refuses n > 16.  The logistic
-// Hessian is MAXN (MAXN + 1) / 2 floats per thread, 136 at MAXN = 16.
+// MAXN = 2, 4, 8 or 16; wider rows run the wide variant
+// (pd_step_wide.cuh: a node a warp).  The logistic Hessian is MAXN
+// (MAXN + 1) / 2 floats per thread, 136 at MAXN = 16.
+//
+// Streamed variant (STAGED false).  A node whose parameters pass the
+// staging plan (logistic nodes of more than ~14,500 samples at n = 2)
+// runs the same kernel with the prox reading its rows from device
+// memory: each value is widened by to_f32 as the staging widens it, the
+// arithmetic and the gather's lanes (make_plan) are the staged
+// variant's, so where both apply they give the same bits.  Its nodes'
+// samples are re-read on each Newton step, one thread a node as in the
+// staged kernel (a thread splitting a node's samples would change the
+// sums' order).
 //
 // What bounds it: bytes for the squared loss (a few flops per byte); the
 // lasso and logistic inner loops add num_inner passes of n^2 (lasso) or
@@ -146,6 +157,7 @@ constexpr int kSmemMax = 227 * 1024 - kSmemStatic;
 // what a block gets without opting in, less the static part (rounded)
 constexpr int kSmemDefault = 48 * 1024 - 1024;
 constexpr int kUnroll = 4;               // gather loads per lane per round
+constexpr int kTileFeatures = 16;        // the widest register tile
 
 // Per-launch plan, computed on the host from the arguments.
 struct Plan {
@@ -164,6 +176,11 @@ struct Plan {
   int ids_cap;
   int ids_offset;    // shared float offset of the staged ids
   int res_offset;    // shared float offset of num_lanes residual maxima
+  // the wide variant (pd_step_wide.cuh) gives each node to one of nw
+  // warps with `scratch` shared floats each at scratch_offset
+  int nw;
+  int scratch;
+  int scratch_offset;
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -296,10 +313,10 @@ __device__ __forceinline__ void store_row(__nv_bfloat16* p, int n, bool vec,
 
 // Stage the tile of nodes [node0, node0 + cnt) in shared memory: each
 // node's slots (in-slot offset and count, out run: an int4 at slots[q];
-// zero past cnt), and its prox parameter rows as float32, node q's row
-// of parameter k at smem[offset[k] + q * stride[k]]: coalesced reads of
-// one contiguous span per table.
-template <typename T>
+// zero past cnt), and (STAGED) its prox parameter rows as float32, node
+// q's row of parameter k at smem[offset[k] + q * stride[k]]: coalesced
+// reads of one contiguous span per table.
+template <typename T, bool STAGED = true>
 __device__ __forceinline__ void stage_tile(const PdArgs& a, const Plan& p,
                                            float* smem, long long node0,
                                            int cnt) {
@@ -316,16 +333,18 @@ __device__ __forceinline__ void stage_tile(const PdArgs& a, const Plan& p,
     }
     slots[q] = m;
   }
+  if constexpr (STAGED) {
 #pragma unroll
-  for (int k = 0; k < 6; ++k) {  // unrolled: the plan stays in registers
-    if (k >= p.num_params) break;
-    const int el = p.elems[k], st = p.stride[k];
-    const T* g = static_cast<const T*>(a.prm[k]) + node0 * el;
-    float* s = smem + p.offset[k];
-    const int total = cnt * el;
-    for (int j = threadIdx.x; j < total; j += kThreads) {
-      const int q = j / el;
-      s[q * st + (j - q * el)] = to_f32(g[j]);
+    for (int k = 0; k < 6; ++k) {  // unrolled: the plan stays in registers
+      if (k >= p.num_params) break;
+      const int el = p.elems[k], st = p.stride[k];
+      const T* g = static_cast<const T*>(a.prm[k]) + node0 * el;
+      float* s = smem + p.offset[k];
+      const int total = cnt * el;
+      for (int j = threadIdx.x; j < total; j += kThreads) {
+        const int q = j / el;
+        s[q * st + (j - q * el)] = to_f32(g[j]);
+      }
     }
   }
 }
@@ -372,34 +391,37 @@ __device__ __forceinline__ void gather_share(const PdArgs& a, const int* ids,
 }
 
 // PU_i(v) of the loss into wp (n live entries of MAXN, zero past n), from
-// the node's staged parameter rows sp[k].
-template <int MAXN, int LOSS>
+// the node's parameter rows sp[k]: staged float32 rows in shared memory,
+// or (the streamed variant) the storage rows in device memory, widened
+// by to_f32 as the staging widens them, so both give the same bits.
+template <int MAXN, int LOSS, typename PT>
 __device__ __forceinline__ void prox(const PdArgs& a,
-                                     const float* const* sp,
+                                     const PT* const* sp,
                                      const float (&v)[MAXN],
                                      float (&wp)[MAXN]) {
   const int n = a.n;
   if (LOSS == kSquared) {  // params ("b", "p"): P (v + b)
-    const float* b = sp[0];
-    const float* P = sp[1];
+    const PT* b = sp[0];
+    const PT* P = sp[1];
     float vb[MAXN];
 #pragma unroll
-    for (int k = 0; k < MAXN; ++k) vb[k] = k < n ? v[k] + b[k] : 0.0f;
+    for (int k = 0; k < MAXN; ++k) vb[k] = k < n ? v[k] + to_f32(b[k]) : 0.0f;
 #pragma unroll
     for (int j = 0; j < MAXN; ++j) {
       float s = 0.0f;
       if (j < n) {
 #pragma unroll
         for (int k = 0; k < MAXN; ++k)
-          if (k < n) s += P[j * n + k] * vb[k];
+          if (k < n) s += to_f32(P[j * n + k]) * vb[k];
       }
       wp[j] = s;
     }
   } else if (LOSS == kLasso) {
     // params ("labeled", "m", "q", "step", "tau", "xty")
-    const float m = sp[1][0], step = sp[3][0], tp = sp[4][0];
-    const float* Q = sp[2];
-    const float* xty = sp[5];
+    const float m = to_f32(sp[1][0]), step = to_f32(sp[3][0]),
+                tp = to_f32(sp[4][0]);
+    const PT* Q = sp[2];
+    const PT* xty = sp[5];
     const float thr = a.alpha * step;
     float z[MAXN];
 #pragma unroll
@@ -412,8 +434,8 @@ __device__ __forceinline__ void prox(const PdArgs& a,
           float qz = 0.0f;
 #pragma unroll
           for (int k = 0; k < MAXN; ++k)
-            if (k < n) qz += Q[j * n + k] * z[k];
-          float g = 2.0f * (qz - xty[j]) / m;
+            if (k < n) qz += to_f32(Q[j * n + k]) * z[k];
+          float g = 2.0f * (qz - to_f32(xty[j])) / m;
           g = g + (z[j] - v[j]) / tp;
           const float x = z[j] - step * g;
           const float sgn = (float)(x > 0.0f) - (float)(x < 0.0f);
@@ -425,16 +447,16 @@ __device__ __forceinline__ void prox(const PdArgs& a,
 #pragma unroll
       for (int k = 0; k < MAXN; ++k) z[k] = zn[k];
     }
-    const bool lab = sp[0][0] > 0.0f;
+    const bool lab = to_f32(sp[0][0]) > 0.0f;
 #pragma unroll
     for (int k = 0; k < MAXN; ++k) wp[k] = lab ? z[k] : v[k];
   } else {
     // params ("labeled", "m", "mask", "tau", "x", "y")
     const int ms = a.num_samples;
-    const float m = sp[1][0], tp = sp[3][0];
-    const float* mask = sp[2];
-    const float* xs = sp[4];
-    const float* ys = sp[5];
+    const float m = to_f32(sp[1][0]), tp = to_f32(sp[3][0]);
+    const PT* mask = sp[2];
+    const PT* xs = sp[4];
+    const PT* ys = sp[5];
     float z[MAXN];
 #pragma unroll
     for (int k = 0; k < MAXN; ++k) z[k] = v[k];
@@ -447,19 +469,19 @@ __device__ __forceinline__ void prox(const PdArgs& a,
         for (int c = 0; c <= r; ++c) h[r][c] = 0.0f;
       }
       for (int j = 0; j < ms; ++j) {
-        const float* row = xs + j * n;
+        const PT* row = xs + (long long)j * n;
         float x[MAXN];
         float logit = 0.0f;
 #pragma unroll
         for (int k = 0; k < MAXN; ++k) {
           if (k < n) {
-            x[k] = row[k];
+            x[k] = to_f32(row[k]);
             logit += x[k] * z[k];
           }
         }
         const float s = 1.0f / (1.0f + expf(-logit));
-        const float mk = mask[j];
-        const float res = (s - ys[j]) * mk;
+        const float mk = to_f32(mask[j]);
+        const float res = (s - to_f32(ys[j])) * mk;
         const float d = (s * (1.0f - s)) * mk;
 #pragma unroll
         for (int r = 0; r < MAXN; ++r) {
@@ -516,17 +538,18 @@ __device__ __forceinline__ void prox(const PdArgs& a,
       for (int k = 0; k < MAXN; ++k)
         if (k < n) z[k] = z[k] - g[k];
     }
-    const bool lab = sp[0][0] > 0.0f;
+    const bool lab = to_f32(sp[0][0]) > 0.0f;
 #pragma unroll
     for (int k = 0; k < MAXN; ++k) wp[k] = lab ? z[k] : (k < n ? v[k] : 0.0f);
   }
 }
 
 // The node update of node i (thread t of its tile) after the tile's D^T u
-// is in shared memory: v = w - tau D^T u, the prox, z = 2 w+ - w and the
-// KM step, written to the carry or the outputs.  Returns the node's
-// residual term (0 without compute_residual).  Pointers are the lane's.
-template <int MAXN, int LOSS, typename T>
+// is in shared memory: v = w - tau D^T u, the prox (parameters staged, or
+// read from device memory), z = 2 w+ - w and the KM step, written to the
+// carry or the outputs.  Returns the node's residual term (0 without
+// compute_residual).  Pointers are the lane's.
+template <int MAXN, int LOSS, typename T, bool STAGED>
 __device__ __forceinline__ float node_update(
     const PdArgs& a, const Plan& p, const float* smem, bool vec,
     bool in_carry, bool out_carry, bool rounded_residual, long long i,
@@ -541,10 +564,20 @@ __device__ __forceinline__ float node_update(
 #pragma unroll
   for (int k = 0; k < MAXN; ++k)
     v[k] = k < n ? w[k] - tt * smem[p.doffset + t * p.dstride + k] : 0.0f;
-  const float* sp[6];
+  if constexpr (STAGED) {
+    const float* sp[6];
 #pragma unroll
-  for (int k = 0; k < 6; ++k) sp[k] = smem + p.offset[k] + t * p.stride[k];
-  prox<MAXN, LOSS>(a, sp, v, wp);
+    for (int k = 0; k < 6; ++k) sp[k] = smem + p.offset[k] + t * p.stride[k];
+    prox<MAXN, LOSS>(a, sp, v, wp);
+  } else {
+    const T* sp[6];
+#pragma unroll
+    for (int k = 0; k < 6; ++k)
+      sp[k] = k < p.num_params
+                  ? static_cast<const T*>(a.prm[k]) + i * p.elems[k]
+                  : nullptr;
+    prox<MAXN, LOSS>(a, sp, v, wp);
+  }
 #pragma unroll
   for (int j = 0; j < MAXN; ++j) {
     zr[j] = 2.0f * wp[j] - w[j];
@@ -643,7 +676,10 @@ template <int MAXN, int LOSS, bool MULTI> constexpr int min_blocks() {
 // MULTI: a launch over num_lanes > 1 lanes.  The one-lane instantiation
 // (MULTI false) is the kernel of a single problem: its lane loops run once
 // with every lane offset 0, and its residual is one register max.
-template <int MAXN, int LOSS, typename T, bool MULTI>
+// STAGED false: the streamed variant, for nodes whose parameters do not
+// fit the staging plan (logistic nodes of many samples): the same code,
+// the prox reading each node's parameter rows from device memory.
+template <int MAXN, int LOSS, typename T, bool MULTI, bool STAGED>
 __global__ void __launch_bounds__(kThreads, min_blocks<MAXN, LOSS, MULTI>())
 fused_pd_step_kernel(PdArgs a, Plan p) {
   // the stop word: a stopped tol solve writes nothing (uniform: every
@@ -686,7 +722,7 @@ fused_pd_step_kernel(PdArgs a, Plan p) {
       const long long node0 = tile * p.tile;
       const long long left = a.num_nodes - node0;
       const int cnt = left < p.tile ? (int)left : p.tile;
-      stage_tile<T>(a, p, smem, node0, cnt);
+      stage_tile<T, STAGED>(a, p, smem, node0, cnt);
       const int* ids = a.in_ids;
       int ids_base = 0;
       if constexpr (MULTI) {
@@ -733,7 +769,7 @@ fused_pd_step_kernel(PdArgs a, Plan p) {
         const int t = threadIdx.x;
         float r = 0.0f;
         if (t < cnt)
-          r = node_update<MAXN, LOSS, T>(
+          r = node_update<MAXN, LOSS, T, STAGED>(
               a, p, smem, vec, in_carry, out_carry, rounded_residual,
               node0 + t, t, w_store + l * a.w_in_lane,
               a.w_carry + l * a.wc_lane, a.z + l * z_lane,
@@ -820,11 +856,12 @@ inline bool aligned16(const void* q) {
 // prox parameters (elements per node of each, as kernels/pd_step.py
 // checks them), their shared rows (each padded to an odd number of
 // words) and the D^T u row.  Returns the node's shared bytes: its slots
-// (an int4), its D^T u row and its parameter rows.  The one count of
-// them: make_plan sizes tiles with it, and the wrapper and the solver's
-// fused gate read make_plan's total through fused_pd_step_staging
-// (pd_step.cu).
-inline long long stage_layout(int loss, int n, int ms, Plan& p) {
+// (an int4), its D^T u row and (staged) its parameter rows.  The one
+// count of them: make_plan sizes tiles with it, and the wrapper and the
+// solver's fused gate read make_plan's total through
+// fused_pd_step_staging (pd_step.cu).
+inline long long stage_layout(int loss, int n, int ms, Plan& p,
+                              bool staged = true) {
   p = Plan{};
   if (loss == kSquared) {
     p.num_params = 2;
@@ -842,32 +879,39 @@ inline long long stage_layout(int loss, int n, int ms, Plan& p) {
   long long per_node = 4 + p.dstride;             // slots (int4), D^T u
   for (int k = 0; k < p.num_params; ++k) {
     p.stride[k] = p.elems[k] | 1;
-    per_node += p.stride[k];
+    if (staged) per_node += p.stride[k];
   }
   return 4 * per_node;
 }
 
 // The launch plan of one loss at register tile MAXN: staged parameter
 // shapes, tile, lanes, vector rows, and for a launch over lanes (MULTI)
-// the staged in-edge ids and the lanes' residual maxima.  The tile and
-// the gather's lanes come from the staged parameters and the mean degree
-// alone, never from the lane count, so each lane of a launch over lanes
-// sums in the order a one-lane launch does.  Returns the shared bytes;
-// past kSmemMax the launch is refused.  The in-edge ids only fill what
-// is left of kSmemTarget, so whether a plan fits depends on the loss, n,
-// the samples a node and the lane count alone: fused_pd_step_staging
-// (pd_step.cu) asks this plan with no graph, for the wrapper and the
-// solver's fused gate.
+// the staged in-edge ids and the lanes' residual maxima.  The gather's
+// lanes come from the staging tile (the tile of the staged plan) and the
+// mean degree alone, never from the lane count or the variant, so each
+// lane of a launch over lanes sums in the order a one-lane launch does,
+// and the streamed variant in the order of the staged one.  Returns the
+// shared bytes; past kSmemMax the launch is refused.  The in-edge ids
+// only fill what is left of kSmemTarget, so whether a plan fits depends
+// on the loss, n, the samples a node and the lane count alone:
+// fused_pd_step_staging (pd_step.cu) asks this plan with no graph, for
+// the wrapper and the solver's fused gate.  `staged` false plans the
+// streamed variant: no parameter rows in shared memory, so its tiles
+// hold up to kMaxTile nodes.
 template <int MAXN, int LOSS, bool MULTI>
-long long make_plan(const PdArgs& a, Plan& p) {
-  const long long node_bytes = stage_layout(LOSS, a.n, a.num_samples, p);
+long long make_plan(const PdArgs& a, Plan& p, bool staged = true) {
+  long long node_bytes = stage_layout(LOSS, a.n, a.num_samples, p);
+  int staging_tile = kMaxTile;
+  while (staging_tile > 1 && staging_tile * node_bytes > kSmemTarget)
+    staging_tile >>= 1;
+  if (!staged) node_bytes = stage_layout(LOSS, a.n, a.num_samples, p, false);
   p.tile = kMaxTile;
   while (p.tile > 1 && p.tile * node_bytes > kSmemTarget) p.tile >>= 1;
   p.doffset = 4 * p.tile;
   long long off = p.doffset + (long long)p.tile * p.dstride;
   for (int k = 0; k < 6; ++k) {
     p.offset[k] = (int)off;
-    if (k < p.num_params) off += (long long)p.tile * p.stride[k];
+    if (staged && k < p.num_params) off += (long long)p.tile * p.stride[k];
   }
   p.num_tiles = (a.num_nodes + p.tile - 1) / p.tile;
   // about kUnroll slots per lane at the mean degree, and every thread of
@@ -876,7 +920,7 @@ long long make_plan(const PdArgs& a, Plan& p) {
       a.num_nodes > 0 ? 2.0 * (double)a.num_in / (double)a.num_nodes : 0.0;
   int lanes = 1;
   while (lanes < 32 && lanes * kUnroll < mean_deg) lanes <<= 1;
-  while (lanes < 32 && lanes * p.tile < kThreads) lanes <<= 1;
+  while (lanes < 32 && lanes * staging_tile < kThreads) lanes <<= 1;
   p.lanes = lanes;
   p.vec = a.n == MAXN && aligned16(a.w_in) && aligned16(a.u_in) &&
           aligned16(a.w_out) && aligned16(a.u_out) &&
@@ -906,12 +950,13 @@ long long make_plan(const PdArgs& a, Plan& p) {
   return off * 4;
 }
 
-template <int MAXN, int LOSS, typename T, bool MULTI>
-cudaError_t launch(const PdArgs& args, cudaStream_t stream) {
-  Plan plan;
-  const long long smem = make_plan<MAXN, LOSS, MULTI>(args, plan);
-  if (smem > kSmemMax) return cudaErrorInvalidValue;
-  auto kernel = fused_pd_step_kernel<MAXN, LOSS, T, MULTI>;
+// One cooperative launch of `kernel` with `plan` and `smem` dynamic
+// shared bytes: the grid is the larger of the node tiles and the edge
+// blocks, capped by the blocks the occupancy query lets reside.
+template <typename Kernel>
+cudaError_t cooperative_launch(Kernel kernel, const PdArgs& args,
+                               const Plan& plan, long long smem,
+                               cudaStream_t stream) {
   cudaError_t err;
   if (smem > kSmemDefault) {  // opt in past the default per-block limit
     err = cudaFuncSetAttribute(kernel,
@@ -935,7 +980,8 @@ cudaError_t launch(const PdArgs& args, cudaStream_t stream) {
   if (blocks > resident) blocks = resident;
   if (blocks < 1) blocks = 1;
   PdArgs local = args;
-  void* kargs[] = {&local, &plan};
+  Plan lplan = plan;
+  void* kargs[] = {&local, &lplan};
   err = cudaLaunchCooperativeKernel((void*)kernel, dim3((unsigned)blocks),
                                     dim3(kThreads), kargs, (size_t)smem,
                                     stream);
@@ -943,28 +989,40 @@ cudaError_t launch(const PdArgs& args, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <int MAXN, int LOSS, typename T, bool MULTI, bool STAGED>
+cudaError_t launch(const PdArgs& args, cudaStream_t stream) {
+  Plan plan;
+  const long long smem = make_plan<MAXN, LOSS, MULTI>(args, plan, STAGED);
+  if (smem > kSmemMax) return cudaErrorInvalidValue;
+  return cooperative_launch(fused_pd_step_kernel<MAXN, LOSS, T, MULTI, STAGED>,
+                            args, plan, smem, stream);
+}
+
 // The register tile and storage type of one loss's launch.
-template <int LOSS, typename T, bool MULTI>
+template <int LOSS, typename T, bool MULTI, bool STAGED>
 cudaError_t launch_width(const PdArgs& a, cudaStream_t s) {
-  if (a.n <= 2) return launch<2, LOSS, T, MULTI>(a, s);
-  if (a.n <= 4) return launch<4, LOSS, T, MULTI>(a, s);
-  if (a.n <= 8) return launch<8, LOSS, T, MULTI>(a, s);
-  if (a.n <= 16) return launch<16, LOSS, T, MULTI>(a, s);
+  if (a.n <= 2) return launch<2, LOSS, T, MULTI, STAGED>(a, s);
+  if (a.n <= 4) return launch<4, LOSS, T, MULTI, STAGED>(a, s);
+  if (a.n <= 8) return launch<8, LOSS, T, MULTI, STAGED>(a, s);
+  if (a.n <= kTileFeatures) return launch<16, LOSS, T, MULTI, STAGED>(a, s);
   return cudaErrorInvalidValue;
 }
 
 // One lane runs the single-problem kernel; more run the lane kernel.
-template <int LOSS, typename T>
+template <int LOSS, typename T, bool STAGED>
 cudaError_t launch_lanes(const PdArgs& a, cudaStream_t s) {
-  if (a.num_lanes == 1) return launch_width<LOSS, T, false>(a, s);
-  return launch_width<LOSS, T, true>(a, s);
+  if (a.num_lanes == 1) return launch_width<LOSS, T, false, STAGED>(a, s);
+  return launch_width<LOSS, T, true, STAGED>(a, s);
 }
 
-template <int LOSS>
+// The register-tile variants (n <= kTileFeatures) of one loss, staged or
+// streamed.
+template <int LOSS, bool STAGED = true>
 cudaError_t dispatch(const PdArgs& a, cudaStream_t s) {
   if (a.n < 1 || a.num_lanes < 1) return cudaErrorInvalidValue;
-  if (a.storage == kF32) return launch_lanes<LOSS, float>(a, s);
-  if (a.storage == kBF16) return launch_lanes<LOSS, __nv_bfloat16>(a, s);
+  if (a.storage == kF32) return launch_lanes<LOSS, float, STAGED>(a, s);
+  if (a.storage == kBF16)
+    return launch_lanes<LOSS, __nv_bfloat16, STAGED>(a, s);
   return cudaErrorInvalidValue;
 }
 

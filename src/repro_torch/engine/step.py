@@ -153,9 +153,20 @@ def certificate(problem, w: torch.Tensor, u: torch.Tensor) -> dict:
     return diag
 
 
-#: Jacobi sweeps of :func:`sym_pinv` past n = 2 (converged at the port's
-#: widths, n <= 16, in float32: ``tests/test_torch_certificate.py``)
+#: Jacobi sweeps of :func:`sym_pinv` past n = 2 (converged to float
+#: resolution at n <= 32, ``tests/test_torch_certificate.py``); wider
+#: matrices take a third more (at n = 64 a half-rank matrix is 8e-5 from
+#: its float64 pinv after 8 sweeps, 8e-6 after 12)
 _JACOBI_SWEEPS = 8
+_JACOBI_SWEEPS_WIDE = 12
+
+
+def jacobi_sweeps(n: int) -> int:
+    """The Jacobi sweeps :func:`sym_pinv` (and its kernel) run at width
+    ``n``: one round is exact at n <= 2."""
+    if n <= 2:
+        return 1
+    return _JACOBI_SWEEPS if n <= 32 else _JACOBI_SWEEPS_WIDE
 
 
 def _jacobi_plan(n: int, dtype, device) -> list:
@@ -201,14 +212,16 @@ def sym_pinv(a: torch.Tensor) -> torch.Tensor:
     n <= 2, converged to float resolution within ``_JACOBI_SWEEPS``
     sweeps at the port's widths), with the eigenvalues below
     ``10 * n * eps * max |lambda|`` cut as the reference's
-    ``jnp.linalg.pinv`` cuts singular values by default."""
+    ``jnp.linalg.pinv`` cuts singular values by default.  The plain
+    version of ``kernels/sym_pinv.py``, which the certificate runs on the
+    card (:func:`certificate_pinv`)."""
     n, batch = a.shape[-1], a.shape[:-2]
     m = math.prod(batch)
     a = a.reshape((m, n, n))
     v = torch.eye(n, dtype=a.dtype, device=a.device).expand_as(a)
     eye = torch.eye(n, dtype=a.dtype, device=a.device).reshape(1, n * n)
     plan = _jacobi_plan(n, a.dtype, a.device)
-    for _ in range(_JACOBI_SWEEPS if n > 2 else 1):
+    for _ in range(jacobi_sweeps(n)):
         for flat, basis in plan:
             k = basis.shape[0] // 2
             entries = a.reshape((m, n * n))[:, flat]
@@ -233,6 +246,20 @@ def sym_pinv(a: torch.Tensor) -> torch.Tensor:
     return out.reshape(batch + (n, n))
 
 
+def certificate_pinv(a: torch.Tensor) -> torch.Tensor:
+    """The certificate's pseudo-inverse of ``a`` (..., n, n): on the card
+    the ``sym_pinv`` kernel (one launch, no host read), at widths it takes
+    (``kernels.sym_pinv.takes``); else, and on the CPU,
+    :func:`sym_pinv`."""
+    if a.device.type == "cuda":
+        from repro_torch.kernels import sym_pinv as kernel
+
+        n = a.shape[-1]
+        if kernel.takes(n):
+            return kernel.sym_pinv(a.contiguous(), sweeps=jacobi_sweeps(n))
+    return sym_pinv(a)
+
+
 def optimality_gap(problem, w: torch.Tensor, u: torch.Tensor
                    ) -> torch.Tensor:
     """True eq.-11 duality gap for squared loss + TV: ``P(w) - g(u)``.
@@ -244,7 +271,8 @@ def optimality_gap(problem, w: torch.Tensor, u: torch.Tensor
     bound for null-space components; unlabeled nodes are exact:
     ``-R |z_i|``.  Weak duality makes the gap a certified upper bound on
     ``P(w) - P*`` (see ``repro.engine.step.optimality_gap``).  The pinv
-    is :func:`sym_pinv`, so the certificate reads nothing on the host.
+    is :func:`certificate_pinv`, so the certificate reads nothing on the
+    host.
     """
     data = problem.data
     lam_a = (problem.lam * problem.graph.weights)[:, None]
@@ -258,7 +286,7 @@ def optimality_gap(problem, w: torch.Tensor, u: torch.Tensor
     radius = 2.0 * torch.max(torch.linalg.norm(w, dim=1)) + 1.0
 
     rhs = c - 0.5 * z
-    w_star = torch.einsum("vnk,vk->vn", sym_pinv(q), rhs)
+    w_star = torch.einsum("vnk,vk->vn", certificate_pinv(q), rhs)
     lval = (torch.einsum("vn,vnk,vk->v", w_star, q, w_star)
             - 2.0 * torch.sum(c * w_star, dim=1) + yty)
     # grad of f(w) = ell(w) + z^T w at w*: 2 (Q w* - rhs)

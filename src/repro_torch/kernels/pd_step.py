@@ -11,10 +11,20 @@ storage with float32 arithmetic; its source note says what bounds it and
 how the design answers that.  It reads the layout's compact incidence
 (``EdgeBlockLayout.compact``, passed as ``incidence``), where its plain
 version, :func:`kernels.ref.fused_pd_step_ref`, reads the padded tables
-``inc_edges`` / ``inc_signs``; the kernel takes no padded tables.  It
-stages each node's prox parameters in shared memory, so a launch whose
-plan passes a block's shared memory (:func:`staging_bytes`: a node's
-parameters, and over lanes one slot a lane) is refused.
+``inc_edges`` / ``inc_signs``; the kernel takes no padded tables.
+
+Variants.  Up to ``TILE_FEATURES`` features a node's row is a register
+tile of one thread (``csrc/pd_step_impl.cuh``); past it the wide kernel
+gives each node to a warp, its features split across the warp's threads
+(``csrc/pd_step_wide.cuh``), for any n.  Each stages its tile's prox
+parameters in shared memory where the launch's plan fits a block
+(:func:`staging_bytes`: a node's parameters, and over lanes one slot a
+lane), and otherwise reads them from device memory (the streamed
+variant, :func:`streaming_bytes`; the same arithmetic, so the same
+bits).  A launch neither plan fits is refused, naming the limit: the
+wide logistic variant keeps a node's Hessian (n (n + 1) / 2 floats) in
+one warp's shared memory, which bounds n at 335 in one lane
+(:func:`kernel_takes`).
 
 Build: ``kernels/_build.py`` compiles it with the port's other CUDA
 sources into one shared library on first use; nothing is built or loaded
@@ -31,7 +41,9 @@ Its checks run before the device check, so the CPU tests reach them.
 Each launch runs in one :mod:`repro_torch.obs.profile` range that names
 the step phases it fuses (``FUSED_STEP``), while telemetry or a profiler
 is on.  ``fused_pd_step.launches`` counts the launches,
-``fused_pd_step.variant_launches`` counts them by ``"<loss>/<dtype>"``,
+``fused_pd_step.variant_launches`` counts them by variant
+(:func:`variant_key`: ``"<loss>/<dtype>"``, with ``"/wide"`` past the
+register tile and ``"/streamed"`` where the parameters are not staged),
 and ``fused_pd_step.lane_launches`` counts those over more than one lane
 by the same key.  A call inside a CUDA-graph capture records the kernel
 and is not counted: the graph's replays run it.  The kernel counts its
@@ -41,6 +53,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 
 import torch
 
@@ -48,7 +61,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._build import check_tensor as _check
 from repro_torch.obs import profile as _prof
 
-MAX_FEATURES = 16          # the kernel's widest per-thread register tile
+TILE_FEATURES = 16         # the widest per-thread register tile
 MAX_LANES = 4096           # lanes of one launch (a shared float each)
 
 # the loss kinds of csrc/pd_step.cuh, with the prox parameters the kernel
@@ -80,6 +93,7 @@ class _PdArgs(ctypes.Structure):
         ("num_lanes", _I64), ("w_in_lane", _I64), ("u_in_lane", _I64),
         ("w_out_lane", _I64), ("u_out_lane", _I64), ("wc_lane", _I64),
         ("uc_lane", _I64), ("la_lane", _I64), ("executions", _P),
+        ("force_streamed", _I32),
     ]
 
 
@@ -99,6 +113,7 @@ def _param_shapes(kind: int, rows: int, n: int, params: tuple) -> list:
     return [col, col, (rows, ms), col, (rows, ms, n), (rows, ms)]
 
 
+@functools.lru_cache(maxsize=None)
 def staging_bytes(kind: int, n: int, num_samples: int,
                   lanes: int = 1) -> tuple[int, int]:
     """``(bytes, limit)``: the shared memory a launch of loss kind
@@ -119,16 +134,60 @@ def staging_bytes(kind: int, n: int, num_samples: int,
     return need.value, limit.value
 
 
-def stages_fit(loss, n: int, num_samples: int, lanes: int = 1) -> bool:
-    """Whether a launch of ``loss`` at ``n`` features, ``num_samples``
-    samples a node and ``lanes`` lanes fits the kernel's shared memory.
-    A loss the kernel has no prox for is not refused here (the wrapper
-    refuses it)."""
+@functools.lru_cache(maxsize=None)
+def streaming_bytes(kind: int, n: int, num_samples: int,
+                    lanes: int = 1) -> tuple[int, int]:
+    """``(bytes, limit)`` as :func:`staging_bytes`, for the streamed
+    variant (parameters read from device memory): its slots, and for the
+    wide variant its warps' slices (``csrc/pd_step.cu:
+    fused_pd_step_streaming``; a register-tile loss with no streamed
+    variant reports more than any limit: its staged plan always fits)."""
+    need, limit = ctypes.c_longlong(), ctypes.c_longlong()
+    err = _build.entry("fused_pd_step_streaming",
+                       [_I32, _I32, _I32, _I32,
+                        ctypes.POINTER(ctypes.c_longlong),
+                        ctypes.POINTER(ctypes.c_longlong)])(
+        kind, n, num_samples, lanes, ctypes.byref(need),
+        ctypes.byref(limit))
+    if err != 0:
+        raise RuntimeError(f"fused_pd_step_streaming failed: CUDA error "
+                           f"{err}")
+    return need.value, limit.value
+
+
+def plan_variant(kind: int, n: int, num_samples: int,
+                 lanes: int = 1) -> str | None:
+    """The variant a launch of loss kind ``kind`` at ``n`` features,
+    ``num_samples`` samples a node and ``lanes`` lanes runs:
+    ``"staged"`` where the staging plan fits a block, else
+    ``"streamed"`` where that plan fits, else None (refused).  The
+    kernel's entry point decides by the same two plans."""
+    need, limit = staging_bytes(kind, n, num_samples, lanes)
+    if need <= limit:
+        return "staged"
+    need, limit = streaming_bytes(kind, n, num_samples, lanes)
+    return "streamed" if need <= limit else None
+
+
+def variant_key(name: str, dtype: torch.dtype, n: int, staged: bool) -> str:
+    """The launch counters' key of a variant: ``"<loss>/<dtype>"``, with
+    ``"/wide"`` past the register tile and ``"/streamed"`` where the
+    prox parameters are read from device memory."""
+    key = f"{name}/{str(dtype).removeprefix('torch.')}"
+    if n > TILE_FEATURES:
+        key += "/wide"
+    return key if staged else key + "/streamed"
+
+
+def kernel_takes(loss, n: int, num_samples: int, lanes: int = 1) -> bool:
+    """Whether the kernel runs a launch of ``loss`` at ``n`` features,
+    ``num_samples`` samples a node and ``lanes`` lanes in one of its
+    variants (:func:`plan_variant`).  A loss the kernel has no prox for
+    is not refused here (the wrapper refuses it)."""
     name = getattr(loss, "name", None)
     if name not in _LOSSES:
         return True
-    need, limit = staging_bytes(_LOSSES[name][0], n, num_samples, lanes)
-    return need <= limit
+    return plan_variant(_LOSSES[name][0], n, num_samples, lanes) is not None
 
 
 def _check_rows(name: str, t: torch.Tensor, shape: tuple,
@@ -155,7 +214,8 @@ def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
                   kn: int, klo: int, khi: int, rho: float = 1.0,
                   iters: int = 1, compute_residual: bool = False,
                   out: tuple | None = None,
-                  active: torch.Tensor | None = None):
+                  active: torch.Tensor | None = None,
+                  streamed: bool = False):
     """Fused PD step on the card (storage shapes, the lane axis and
     ``out`` / ``active`` as :func:`kernels.ref.fused_pd_step_ref`).
     ``incidence`` is the
@@ -169,8 +229,11 @@ def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
     Lane-stacked stores give (L, nb*BV, n) / (L, nb*EB, n) outputs and an
     (L,) residual, one launch for every lane.
     ``active`` (a one-element bool tensor, with ``out``) is the stop word
-    of a tol solve: when it is False the launch writes nothing.  Launches
-    on the current stream and does not synchronize."""
+    of a tol solve: when it is False the launch writes nothing.
+    ``streamed`` runs the streamed variant where the staged one would
+    run (the two give the same bits: for checking them against each
+    other); the register-tile squared and lasso kernels have none.
+    Launches on the current stream and does not synchronize."""
     from repro_torch.api.regularizers import SquaredTV, TotalVariation
 
     name = getattr(loss, "name", None)
@@ -203,10 +266,6 @@ def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
     n = w_store.shape[-1]
     if n < 1:
         raise ValueError(f"fused_pd_step needs at least one feature, got {n}")
-    if n > MAX_FEATURES:
-        raise NotImplementedError(
-            f"the fused_pd_step kernel takes 1..{MAX_FEATURES} features, got "
-            f"{n}; wider tiles are ROADMAP.md Open items §2 item 1")
     store = w_store.dtype
     if store not in _STORAGE:
         raise TypeError(f"fused_pd_step stores float32 or bfloat16, got "
@@ -258,14 +317,24 @@ def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
         raise ValueError(f"fused_pd_step launches on CUDA tensors; got "
                          f"{device} (kernels.ops.pd_step sends CPU tensors "
                          "to the plain version)")
-    need, limit = staging_bytes(kind, n, num_samples, lanes or 1)
-    if need > limit:
+    plan = plan_variant(kind, n, num_samples, lanes or 1)
+    if streamed and plan == "staged":
+        need, limit = streaming_bytes(kind, n, num_samples, lanes or 1)
+        if need > limit:
+            raise ValueError(f"{name} at n = {n} has no streamed variant "
+                             "(its register-tile kernel always stages)")
+        plan = "streamed"
+    if plan is None:
+        need, limit = streaming_bytes(kind, n, num_samples, lanes or 1)
         raise NotImplementedError(
-            f"the fused_pd_step kernel stages a node's prox parameters in "
-            f"shared memory, at most {limit} bytes; {name} at n = {n}"
+            f"the fused_pd_step kernel needs {need} bytes of a block's "
+            f"shared memory, at most {limit}, for {name} at n = {n}"
             + (f" with {num_samples} samples a node" if kind == 2 else "")
             + (f" over {lanes} lanes" if lanes else "")
-            + f" needs {need} (the solver runs such a problem unfused)")
+            + (": the wide logistic variant keeps a node's Hessian, "
+               "n (n + 1) / 2 floats, and five rows of n in one warp's "
+               "shared memory" if kind == 2 and n > TILE_FEATURES else "")
+            + " (the solver runs such a problem unfused)")
 
     if out is None:
         out = (torch.empty(lead + (nb * bv, n), dtype=store, device=device),
@@ -296,7 +365,8 @@ def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
         int(getattr(loss, "num_inner", 0)),
         float(getattr(loss, "alpha", 0.0)), lanes or 1,
         *map(lane_stride, (w_store, u_store, w_new, u_new, *carry, la)),
-        _build.execution_counter("fused_pd_step", device))
+        _build.execution_counter("fused_pd_step", device),
+        int(plan == "streamed"))
     stream = torch.cuda.current_stream(device).cuda_stream
     with _prof.annotate(_prof.FUSED_STEP), torch.cuda.device(device):
         err = _build.entry("fused_pd_step_launch", _ARGTYPES)(
@@ -304,7 +374,7 @@ def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"fused_pd_step launch failed: CUDA error {err}")
     if not torch.cuda.is_current_stream_capturing():
-        variant = f"{name}/{str(store).removeprefix('torch.')}"
+        variant = variant_key(name, store, n, plan == "staged")
         fused_pd_step.launches += 1
         fused_pd_step.variant_launches[variant] += 1
         if (lanes or 1) > 1:

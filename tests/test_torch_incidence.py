@@ -13,18 +13,21 @@ gather (1e-12: float64 sums in another order).  The auto-tuner builds
 the compact tables once, for the layout it keeps.  The kernel wrapper
 refuses missing or mismatched tables before it looks for the card, and
 the plain version never reads them.  A node whose prox parameters pass
-the kernel's shared-memory staging, or a problem wider than the kernel's
-widest register tile (n > 16), sends the solver's fused gate to the
-unfused path (on a simulated CUDA dispatch, with the kernel's count
-stubbed: the CPU has no kernel library).
+the kernel's shared-memory staging (its streamed variant), a problem
+wider than the kernel's widest register tile (n > 16, its wide variant)
+and a path past the lane plan take the solver's fused route, in bf16
+storage too, held to the reference's bf16 fused solve; only what neither
+of the kernel's plans takes runs unfused (on a simulated CUDA dispatch,
+with the kernel's counts stubbed: the CPU has no kernel library).
 
 On the card (``-m cuda``): every loss x storage variant of the kernel
 gives bit-identical outputs over two launches (no float atomics in the
 gather); on every zoo layout one step is within 1e-5 of the plain
 version in float32 and one bf16 ulp in bfloat16; logistic nodes with
 thousands of samples (small tiles, and the opt-in to more than 48 KB of
-shared memory) hold to 1e-5; past the staging limit the wrapper refuses
-them and the solver solves them unfused.
+shared memory) hold to 1e-5; past the staging limit the kernel streams
+them (bit-identical to staging them where both apply) and the solver
+fuses them; a wide logistic node past n = 335 is refused.
 """
 import dataclasses
 
@@ -266,20 +269,33 @@ def _many_samples(ms, device):
 
 
 @pytest.mark.cuda
-def test_wrapper_refuses_parameters_past_shared_memory():
-    """One node's staged logistic samples past a block's shared memory,
-    by the kernel's own count: refused, naming the limit; half as many
-    launch."""
+def test_wrapper_streams_parameters_past_shared_memory():
+    """One node's logistic samples past a block's shared memory, by the
+    kernel's own count: the launch reads them from device memory (the
+    streamed variant), within 1e-5 of the plain version; at half as many
+    the staged variant runs, and the streamed one forced on those inputs
+    gives its bits."""
     _need_card()
     ms = 15000
     need, limit = pd_step.staging_bytes(2, 2, ms)
     assert need > limit >= pd_step.staging_bytes(2, 2, ms // 2)[0]
+    assert pd_step.streaming_bytes(2, 2, ms)[0] <= limit
     args, kw = _step(problem=_many_samples(ms, "cuda"), device="cuda")
-    with pytest.raises(NotImplementedError, match="shared memory"):
-        _kernel(args, kw)
-    args, kw = _step(problem=_many_samples(ms // 2, "cuda"), device="cuda")
-    _kernel(args, kw)
+    before = fused_pd_step.variant_launches["logistic/float32/streamed"]
+    got = _kernel(args, kw)
+    want = _plain(args, kw)
     torch.cuda.synchronize()
+    assert (fused_pd_step.variant_launches["logistic/float32/streamed"]
+            == before + 1)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    args, kw = _step(problem=_many_samples(ms // 2, "cuda"), device="cuda")
+    staged = _kernel(args, kw)
+    streamed = _kernel(args, dict(kw, streamed=True))
+    torch.cuda.synchronize()
+    for a, b in zip(staged, streamed):
+        assert torch.equal(a, b)
 
 
 def test_plain_version_ignores_the_compact_tables():
@@ -320,34 +336,63 @@ def cuda_gate(monkeypatch):
     return fused
 
 
+def _plan_stubs(monkeypatch, staged=True, streamed=True, asked=None):
+    """Stub the kernel's two plan counts (the CPU has no kernel library):
+    the staged plan fits where ``staged(kind, n, samples, lanes)`` is
+    true, the streamed one where ``streamed(...)`` is; ``asked`` records
+    the staged plan's questions."""
+    def plan(fits, record):
+        def count(kind, n, num_samples, lanes=1):
+            if record is not None:
+                record.append((kind, n, num_samples, lanes))
+            ok = fits(kind, n, num_samples, lanes) if callable(fits) else fits
+            return (1, 2) if ok else (3, 2)
+        return count
+
+    monkeypatch.setattr(pd_step, "staging_bytes", plan(staged, asked))
+    monkeypatch.setattr(pd_step, "streaming_bytes", plan(streamed, None))
+
+
 @pytest.mark.parametrize("fits", [True, False])
 def test_fused_gate_runs_unstageable_nodes_unfused(fits, cuda_gate,
                                                    monkeypatch):
     """The fused gate asks the kernel's staging count (stubbed here: the
-    CPU has no kernel library).  A node within the limit fuses; one past
-    it sends ``Solver(backend="pallas")`` to the unfused path instead of
-    the kernel, and the solve gives the dense backend's result.  bf16
-    storage, a policy of the fused path only, is refused there, as
-    everywhere off that path."""
+    CPU has no kernel library).  A node within the staging limit fuses
+    staged; one past it fuses too, the kernel reading its parameters
+    from device memory (the streamed variant): ``Solver(backend=
+    "pallas")`` takes the fused route either way, within 1e-4 of the
+    dense backend, and bf16 storage runs there as well."""
     asked = []
-
-    def staging(kind, n, num_samples, lanes=1):
-        asked.append((kind, n, num_samples, lanes))
-        return (1, 2) if fits else (3, 2)
-
-    monkeypatch.setattr(pd_step, "staging_bytes", staging)
+    _plan_stubs(monkeypatch, staged=fits, asked=asked)
     problem = _many_samples(40, "cpu")
     cfg = SolverConfig(backend="pallas", num_iters=30)
     got = Solver(cfg).run(problem)
     assert asked and asked[-1] == (2, 2, 40, 1)
-    assert len(cuda_gate) == int(fits)
+    assert len(cuda_gate) == 1
     want = Solver(cfg.replace(backend="dense")).run(problem)
-    tol = 1e-4 if fits else 1e-6
-    np.testing.assert_allclose(got.w.numpy(), want.w.numpy(), rtol=tol,
-                               atol=tol)
-    if not fits:
-        with pytest.raises(NotImplementedError, match="bfloat16"):
-            Solver(cfg.replace(dtype="bfloat16")).run(problem)
+    np.testing.assert_allclose(got.w.numpy(), want.w.numpy(), rtol=1e-4,
+                               atol=1e-4)
+    Solver(cfg.replace(dtype="bfloat16")).run(problem)
+    assert len(cuda_gate) == 2
+
+
+def test_fused_gate_runs_unfused_only_past_the_kernels_limit(cuda_gate,
+                                                             monkeypatch):
+    """What neither of the kernel's plans takes (on the card: a wide
+    logistic node whose Hessian, n (n + 1) / 2 floats, passes one warp's
+    shared memory, n > 335 in one lane; stubbed here) runs unfused,
+    within 1e-6 of the dense backend, and bf16 storage is refused there,
+    as everywhere off the fused path."""
+    _plan_stubs(monkeypatch, staged=False, streamed=False)
+    problem = _many_samples(40, "cpu")
+    cfg = SolverConfig(backend="pallas", num_iters=30)
+    got = Solver(cfg).run(problem)
+    assert not cuda_gate
+    want = Solver(cfg.replace(backend="dense")).run(problem)
+    np.testing.assert_allclose(got.w.numpy(), want.w.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        Solver(cfg.replace(dtype="bfloat16")).run(problem)
 
 
 def _wide_problem(n, device="cpu"):
@@ -381,33 +426,31 @@ def _wide_problem(n, device="cpu"):
 
 def test_fused_gate_runs_wide_problems_unfused(cuda_gate, monkeypatch):
     """n = 17 features, past the kernel's widest register tile: the
-    fused gate refuses it on the card (before it asks the staging
-    count), so ``Solver(backend="pallas")`` runs the unfused path, within
-    1e-4 of the reference's dense ``w``, instead of raising in the
-    wrapper; ``solve_path``'s fused lanes go through the same gate.  At
-    n = 16 the gate fuses."""
+    fused gate asks the kernel's plan (stubbed: the wide variant stages
+    it) and ``Solver(backend="pallas")`` takes the fused route, within
+    1e-4 of the reference's dense ``w``; ``solve_path``'s fused lanes go
+    through the same gate and fuse too.  At n = 16 the gate fuses."""
     from repro.api import Solver as JSolver
     from repro.api import SolverConfig as JConfig
     from repro_torch.api import solve_path
 
-    def staging(*_args):
-        raise AssertionError("the gate asked the staging count")
-
-    monkeypatch.setattr(pd_step, "staging_bytes", staging)
+    asked = []
+    _plan_stubs(monkeypatch, asked=asked)
     conf = dict(num_iters=200, rho=1.9, metric_every=50)
     problem, jproblem = _wide_problem(17)
     cfg = SolverConfig(backend="pallas", **conf)
     got = Solver(cfg).run(problem)
-    assert not cuda_gate
+    assert cuda_gate == [None] and asked[-1] == (0, 17, 24, 1)
     want = JSolver(JConfig(**conf)).run(jproblem)
     np.testing.assert_allclose(got.w.numpy(), np.asarray(want.w), rtol=0,
                                atol=1e-4)
-    path = solve_path(problem, [1e-2, 3e-2],
+    lams = [1e-2, 3e-2]
+    path = solve_path(problem, lams,
                       cfg.replace(warm_iters=100, final_iters=100))
-    assert not cuda_gate and path.w.shape == (2, 40, 17)
-    monkeypatch.setattr(pd_step, "staging_bytes", lambda *_args: (1, 2))
+    assert cuda_gate[1] is None and path.w.shape == (2, 40, 17)
+    np.testing.assert_array_equal(cuda_gate[2], np.float32(lams))
     Solver(cfg).run(_wide_problem(16)[0])
-    assert len(cuda_gate) == 1
+    assert len(cuda_gate) == 4 and cuda_gate[-1] is None
 
 
 LANE_WINDOW_SAMPLES = 14523     # fits the kernel's plan as one lane, not six
@@ -417,31 +460,81 @@ LANE_WINDOW_CONF = dict(backend="pallas", rho=1.9, warm_iters=30,
 
 
 def test_fused_gate_counts_a_paths_lanes(cuda_gate, monkeypatch):
-    """A node that fits the kernel's plan as one lane but not as six (a
-    slot more a lane; stubbed here by the lane count the gate asks
-    with): ``Solver`` fuses it, and ``solve_path`` over six lambdas asks
-    the plan at six lanes and runs the unfused lane path instead of the
-    fused lanes, within 1e-4 of the dense path."""
+    """A node that fits the kernel's staging plan as one lane but not as
+    six (a slot more a lane; stubbed here by the lane count the gate asks
+    with): ``Solver`` fuses it staged, and ``solve_path`` over six
+    lambdas asks the plan at six lanes and runs the fused lanes with the
+    parameters streamed, within 1e-4 of the dense path."""
     from repro_torch.api import solve_path
 
     asked = []
-
-    def staging(kind, n, num_samples, lanes=1):
-        asked.append(lanes)
-        return (1, 2) if lanes == 1 else (3, 2)
-
-    monkeypatch.setattr(pd_step, "staging_bytes", staging)
+    _plan_stubs(monkeypatch, staged=lambda *a: a[3] == 1, asked=asked)
     problem = _many_samples(40, "cpu")
     cfg = SolverConfig(**LANE_WINDOW_CONF)
     Solver(cfg.replace(num_iters=30)).run(problem)
     assert cuda_gate == [None]
     got = solve_path(problem, LANE_WINDOW_LAMS, cfg)
-    assert len(LANE_WINDOW_LAMS) in asked
-    assert cuda_gate == [None, None]        # the warm solve alone fused
+    assert (2, 2, 40, len(LANE_WINDOW_LAMS)) in asked
+    assert cuda_gate[:2] == [None, None] and len(cuda_gate) == 3
+    np.testing.assert_array_equal(cuda_gate[2], LANE_WINDOW_LAMS)
     want = solve_path(problem, LANE_WINDOW_LAMS,
                       cfg.replace(backend="dense"))
     np.testing.assert_allclose(got.w.numpy(), want.w.numpy(), rtol=0,
                                atol=1e-4)
+
+
+BF16_OBJ_REL = 0.15          # the reference's gates (tests/test_precision.py)
+BF16_W_REL = 0.5
+
+
+def _reference_many_samples(problem, ms):
+    """The reference's problem on ``_many_samples(ms)``'s graph (the same
+    seed, bit-equal planners) and data (the same arrays)."""
+    import jax.numpy as jnp
+    from repro.api import Problem as JProblem
+    from repro.core import graph as jg
+    from repro.core.losses import NodeData as JNodeData
+
+    g, _ = jg.sbm_graph(np.random.default_rng(ms), (20, 20), 0.3, 0.05)
+    d = problem.data
+    data = JNodeData(*(jnp.asarray(getattr(d, k).numpy()) for k in
+                       ("x", "y", "sample_mask", "labeled_mask")))
+    return JProblem.create(g, data, problem.lam, loss="logistic")
+
+
+@pytest.mark.parametrize("which", ["wide17", "samples15000"])
+def test_bf16_fuses_where_the_reference_fuses(which, cuda_gate,
+                                              monkeypatch):
+    """bf16 storage on the card where the reference's TPU fuses: a
+    17-feature problem (the wide variant) and logistic nodes of 15,000
+    samples (past the staging plan: the streamed variant).
+    ``Solver(backend="pallas", dtype="bfloat16")`` takes the fused route
+    (the gate as on the card, the plan counts stubbed), and on the CPU
+    its result is held to the reference's bf16 fused solve within the
+    reference's bf16 gates (final objective 0.15 relative, ``w`` 0.5 of
+    its scale)."""
+    from repro.api import Solver as JSolver
+    from repro.api import SolverConfig as JConfig
+
+    conf = dict(num_iters=60, rho=1.9, metric_every=20)
+    if which == "wide17":
+        _plan_stubs(monkeypatch)
+        problem, jproblem = _wide_problem(17)
+    else:
+        _plan_stubs(monkeypatch, staged=False)
+        problem = _many_samples(15000, "cpu")
+        jproblem = _reference_many_samples(problem, 15000)
+    got = Solver(SolverConfig(backend="pallas", dtype="bfloat16",
+                              **conf)).run(problem)
+    assert cuda_gate == [None]
+    want = JSolver(JConfig(backend="pallas", fused=True, dtype="bfloat16",
+                           **conf)).run(jproblem)
+    obj, ref_obj = got.objective.numpy(), np.asarray(want.objective)
+    assert np.isfinite(obj).all()
+    assert abs(obj[-1] - ref_obj[-1]) / abs(ref_obj[-1]) <= BF16_OBJ_REL
+    scale = float(np.abs(np.asarray(want.w)).max()) or 1.0
+    w_rel = float(np.abs(got.w.numpy() - np.asarray(want.w)).max()) / scale
+    assert w_rel <= BF16_W_REL
 
 
 def _need_card():
@@ -517,45 +610,79 @@ def test_cuda_kernel_stages_many_samples(ms):
 
 
 @pytest.mark.cuda
-def test_cuda_solver_runs_many_samples_unfused():
+def test_cuda_solver_runs_many_samples_fused():
     """A logistic problem whose nodes pass the kernel's staging limit
-    solves on the card with the default routing: through the unfused
-    path (no fused launch), within 1e-4 of the dense backend."""
+    solves on the card with the default routing through the fused
+    kernel's streamed variant (no unfused launch), within 1e-4 of the
+    dense backend, and in bf16 storage too."""
     _need_card()
     from repro_torch.kernels.tv_prox import tv_prox
 
     problem = _many_samples(15000, "cuda")
     cfg = SolverConfig(backend="pallas", num_iters=30)
-    assert not backends._should_fuse(problem, cfg)
-    fused, clips = fused_pd_step.launches, tv_prox.launches
+    assert backends._should_fuse(problem, cfg)
+    streamed = fused_pd_step.variant_launches["logistic/float32/streamed"]
+    clips = tv_prox.launches
     got = Solver(cfg).run(problem)
     torch.cuda.synchronize()
-    assert fused_pd_step.launches == fused and tv_prox.launches > clips
+    assert (fused_pd_step.variant_launches["logistic/float32/streamed"]
+            > streamed and tv_prox.launches == clips)
     want = Solver(cfg.replace(backend="dense")).run(problem)
     np.testing.assert_allclose(got.w.cpu().numpy(), want.w.cpu().numpy(),
                                rtol=1e-4, atol=1e-4)
+    bf16 = Solver(cfg.replace(dtype="bfloat16")).run(problem)
+    assert fused_pd_step.variant_launches["logistic/bfloat16/streamed"] > 0
+    assert bool(torch.isfinite(bf16.w).all())
 
 
 @pytest.mark.cuda
-def test_cuda_path_past_the_lane_plan_runs_unfused():
-    """Logistic nodes of 14,523 samples fit the kernel's plan as one lane
-    and not as six: ``solve_path`` over six lambdas solves on the card
-    (the unfused lanes), within 1e-4 of the dense path."""
+def test_cuda_path_past_the_lane_plan_runs_fused():
+    """Logistic nodes of 14,523 samples fit the kernel's staging plan as
+    one lane and not as six: ``solve_path`` over six lambdas runs the
+    fused lanes with the parameters streamed, each lane bit-identical to
+    a one-lane (staged) fused solve from the path's warm start, within
+    1e-4 of the dense path."""
     _need_card()
     from repro_torch.api import solve_path
-    from repro_torch.kernels.tv_prox import tv_prox
+    from repro_torch.engine import default_warm_lam
 
     problem = _many_samples(LANE_WINDOW_SAMPLES, "cuda")
     loss = problem.loss
-    assert pd_step.stages_fit(loss, 2, LANE_WINDOW_SAMPLES)
-    assert not pd_step.stages_fit(loss, 2, LANE_WINDOW_SAMPLES, 6)
+    kind = pd_step._LOSSES["logistic"][0]
+    assert pd_step.plan_variant(kind, 2, LANE_WINDOW_SAMPLES) == "staged"
+    assert pd_step.plan_variant(kind, 2, LANE_WINDOW_SAMPLES,
+                                6) == "streamed"
+    assert pd_step.kernel_takes(loss, 2, LANE_WINDOW_SAMPLES, 6)
     cfg = SolverConfig(**LANE_WINDOW_CONF)
-    lanes = dict(fused_pd_step.lane_launches)
-    clips = tv_prox.launches
+    key = "logistic/float32/streamed"
+    lanes = fused_pd_step.lane_launches[key]
     got = solve_path(problem, LANE_WINDOW_LAMS, cfg)
     torch.cuda.synchronize()
-    assert dict(fused_pd_step.lane_launches) == lanes
-    assert tv_prox.launches > clips
+    assert fused_pd_step.lane_launches[key] > lanes
+    warm = backends.solve_pallas(problem.with_lam(default_warm_lam(
+        float(np.max(LANE_WINDOW_LAMS)))), cfg.replace(
+        num_iters=cfg.warm_iters, compute_diagnostics=False))
+    final = cfg.replace(num_iters=cfg.final_iters, compute_diagnostics=False)
+    for k in (0, len(LANE_WINDOW_LAMS) - 1):
+        lam = float(LANE_WINDOW_LAMS[k])
+        u0 = problem.regularizer.project_dual(warm.u, problem.graph, lam)
+        one = backends._solve_fused(problem.with_lam(lam), final,
+                                    w0=warm.w, u0=u0)
+        assert torch.equal(one.w, got.w[k])
     want = solve_path(problem, LANE_WINDOW_LAMS, cfg.replace(backend="dense"))
     np.testing.assert_allclose(got.w.cpu().numpy(), want.w.cpu().numpy(),
                                rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_wide_logistic_limit():
+    """The one width the kernel refuses: a wide logistic node keeps its
+    Hessian, n (n + 1) / 2 floats, and five rows of n in one warp's
+    shared memory, so n = 335 is the widest it takes in one lane; at 336
+    the wrapper refuses, naming the Hessian, and the gate routes such a
+    problem unfused."""
+    _need_card()
+    loss = _many_samples(8, "cpu").loss
+    assert pd_step.kernel_takes(loss, 335, 8)
+    assert not pd_step.kernel_takes(loss, 336, 8)
+    assert pd_step.plan_variant(2, 335, 8) == "streamed"

@@ -368,13 +368,14 @@ def test_wrapper_refuses_wrongly_typed_params(loss, k):
 
 
 def test_wrapper_refuses_wide_features_and_cpu_tensors():
-    args, kw = _wrapper_args("squared", n=17)
-    with pytest.raises(NotImplementedError, match="1..16 features"):
-        fused_pd_step(*args, **kw)
+    """No feature count is refused (n > 16 runs the wide variant): the
+    checks of every loss at n = 16, 17 and 33 pass and the wrapper
+    refuses the CPU tensors, the plain version's."""
     for loss in PKEYS:
-        args, kw = _wrapper_args(loss, n=16)
-        with pytest.raises(ValueError, match="CUDA"):
-            fused_pd_step(*args, **kw)
+        for n in (16, 17, 33):
+            args, kw = _wrapper_args(loss, n=n)
+            with pytest.raises(ValueError, match="CUDA"):
+                fused_pd_step(*args, **kw)
     args, kw = _wrapper_args("squared")
     args[2] = args[2] + (args[2][0],)
     with pytest.raises(NotImplementedError, match="no prox"):
@@ -419,6 +420,43 @@ def test_cuda_kernel_matches_plain_version(v, n, bv, rho, reg):
     for o, w in zip(got, want):
         np.testing.assert_allclose(o.cpu().numpy(), w.cpu().numpy(),
                                    rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("loss", sorted(PKEYS))
+@pytest.mark.parametrize("n", [17, 33])
+def test_wide_steps_match_reference(loss, n):
+    """Past the register tile (n > 16: the kernel's wide variant) every
+    loss's plain step against the reference's jnp ``fused_pd_step_ref``
+    on a banded layout, with the residual (1e-5, as
+    ``test_loss_variants_match_reference``)."""
+    arrays, ext = _loss_arrays(loss, 40, n, 16, seed=n)
+    j = _reference()
+    reg = "tv" if n % 2 else "tv2"
+    kw = dict(ext, rho=1.9, compute_residual=True)
+    out = ref.fused_pd_step_ref(*_as(arrays, _to_torch), loss=_port_loss(loss),
+                                reg=REGS[reg], **kw)
+    want = j["ref"].fused_pd_step_ref(
+        *_as(arrays, j["jnp"].asarray), loss=j["losses"][loss],
+        reg=j["regs"][reg], **kw)
+    for o, w in zip(out, want):
+        np.testing.assert_allclose(o.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_variant_keys():
+    """The launch counters' keys: the earlier slices' ``"<loss>/<dtype>"``
+    for the staged register tile, ``"/wide"`` past it, ``"/streamed"``
+    where the parameters are read from device memory."""
+    from repro_torch.kernels.pd_step import TILE_FEATURES, variant_key
+
+    assert variant_key("squared", torch.float32, 16, True) == \
+        "squared/float32"
+    assert variant_key("lasso", torch.bfloat16, TILE_FEATURES + 1, True) == \
+        "lasso/bfloat16/wide"
+    assert variant_key("logistic", torch.float32, 2, False) == \
+        "logistic/float32/streamed"
+    assert variant_key("logistic", torch.float32, 64, False) == \
+        "logistic/float32/wide/streamed"
 
 
 KERNEL_CASES = [(61, 2, 16, 1), (103, 3, 32, 1), (64, 8, 16, 1),
@@ -500,6 +538,186 @@ def test_cuda_stop_word_and_in_place_out(loss):
         else:
             assert torch.equal(w_s, args[0]) and torch.equal(u_s, args[1])
             assert float(r_o) == 0.0
+
+
+WIDE_NS = [17, 24, 32, 33, 64, 128]
+
+
+def _f64(arrays, kw):
+    """The plain version in float64 on the step's arrays: the yardstick
+    of float32 rounding."""
+    def cast(a):
+        t = _to_torch(a, "cuda")
+        return t.double() if t.is_floating_point() else t
+    return ref.fused_pd_step_ref(*_as(arrays, cast), **{
+        k: v for k, v in kw.items() if k != "incidence"})
+
+
+def _ridge(arrays, seed):
+    """The squared loss's parameters as a ridge prox (P = (I + X^T X /
+    m)^-1 of m = n + 1 random samples, b ~ 0.1 N): symmetric with
+    eigenvalues in (0, 1], so a long run stays bounded, where
+    ``_step_arrays``' P = I + 0.1 N grows without bound."""
+    rng = np.random.default_rng(seed)
+    rows, n = arrays[4][0].shape
+    x = rng.standard_normal((rows, n + 1, n))
+    p = np.linalg.inv(np.eye(n) + np.einsum("vmn,vmk->vnk", x, x) / (n + 1))
+    params = ((0.1 * rng.standard_normal((rows, n))).astype(np.float32),
+              p.astype(np.float32))
+    return arrays[:4] + (params,) + arrays[5:]
+
+
+def _check_plain(got, want, arrays, dtype, tol=1e-5, exact=None):
+    """A kernel call against the plain version: ``tol`` in float32, or
+    twice the plain version's own distance from its float64 run
+    (``exact``) where that is larger (at n = 128 the float32 rounding of
+    a logistic Newton step, a 128 x 128 factorization eight times,
+    reaches ~1e-5 by itself); one bf16 ulp at each output's scale in
+    bfloat16, that ulp over min(tau, sigma) on the residual."""
+    g = [t.float().cpu().numpy() for t in got]
+    w = [t.float().cpu().numpy() for t in want]
+    if dtype == "float32":
+        x = ([None] * len(w) if exact is None
+             else [t.cpu().numpy() for t in exact])
+        for a, b, e in zip(g, w, x):
+            lim = tol if e is None else max(tol, 2.0 * np.abs(b - e).max())
+            np.testing.assert_allclose(a, b, rtol=tol, atol=lim)
+        return
+    for a, b in zip(g[:2], w[:2]):
+        assert np.abs(a - b).max() <= bf16_ulp(float(np.abs(b).max())) + tol
+    ulp = bf16_ulp(max(float(np.abs(x).max()) for x in w[:2]))
+    steps = min(float(arrays[5][arrays[5] > 0].min()),
+                float(arrays[8].min()))
+    np.testing.assert_allclose(g[2], w[2], rtol=tol, atol=ulp / steps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss", sorted(PKEYS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", WIDE_NS)
+def test_cuda_wide_variants_match_plain_version(loss, dtype, n):
+    """The wide kernel (n > 16, a node a warp) against its plain version:
+    one call on a banded layout (1e-5; bf16 one ulp), counted under its
+    ``"/wide"`` key; the streamed variant forced on the same inputs gives
+    the staged variant's bits; and 100 iterations in one launch on the
+    whole-graph block within 1e-4 (bf16: one ulp more; the squared loss
+    with a ridge prox's P, ``_ridge``).  Float32 limits grow to twice the
+    plain version's own float64 distance where that is larger."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels.pd_step import plan_variant
+
+    arrays, ext = _loss_arrays(loss, 40, n, 16, seed=n)
+    args = _cuda_args(arrays, dtype)
+    kw = dict(ext, loss=_port_loss(loss), reg=REGS["tv" if n % 2 else "tv2"],
+              rho=1.9, compute_residual=True,
+              incidence=_incidence(arrays, ext, "cuda"))
+    kind = {"squared": 0, "lasso": 1, "logistic": 2}[loss]
+    ms = arrays[4][-1].shape[1] if loss == "logistic" else 0
+    key = f"{loss}/{dtype}/wide"
+    if plan_variant(kind, n, ms) != "staged":
+        key += "/streamed"
+    before = fused_pd_step.variant_launches[key]
+    got = fused_pd_step(*_kernel_args(args), **kw)
+    again = fused_pd_step(*_kernel_args(args), **kw, streamed=True)
+    want = ref.fused_pd_step_ref(*args, **{k: v for k, v in kw.items()
+                                           if k != "incidence"})
+    torch.cuda.synchronize()
+    assert fused_pd_step.variant_launches[key] == before + 1
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    _check_plain(got, want, arrays, dtype, exact=_f64(arrays, kw))
+
+    arrays, ext = _loss_arrays(loss, 48, n, None, seed=n + 1)
+    if loss == "squared":
+        arrays = _ridge(arrays, seed=n)
+    args = _cuda_args(arrays, dtype)
+    kw.update(ext, iters=100, incidence=_incidence(arrays, ext, "cuda"))
+    got = fused_pd_step(*_kernel_args(args), **kw)
+    want = ref.fused_pd_step_ref(*args, **{k: v for k, v in kw.items()
+                                           if k != "incidence"})
+    torch.cuda.synchronize()
+    _check_plain(got, want, arrays, dtype, tol=1e-4, exact=_f64(arrays, kw))
+
+
+def _lanes(args, lanes):
+    """``_kernel_args``-style arguments as ``lanes`` lanes of a lambda
+    path: w shared, la and the duals scaled per lane."""
+    scale = np.geomspace(1.0, 0.1, lanes)
+    out = list(args)
+    out[0] = torch.stack([args[0]] * lanes)
+    out[1] = torch.stack([args[1] * float(s) for s in scale])
+    out[-1] = torch.stack([args[-1] * float(s) for s in scale])
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss", sorted(PKEYS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("iters", [1, 5])
+def test_cuda_wide_lanes_match_one_lane_launches(loss, dtype, iters):
+    """Three lanes of the wide kernel at n = 33 in one launch, each lane
+    bit-identical to a one-lane launch on its inputs (a node's sums run
+    in one fixed order on its warp), staged and streamed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    arrays, ext = _loss_arrays(loss, 48 if iters > 1 else 61, 33,
+                               None if iters > 1 else 16, seed=iters)
+    args = _kernel_args(_cuda_args(arrays, dtype))
+    kw = dict(ext, loss=_port_loss(loss), reg=REGS["tv"], rho=1.9,
+              iters=iters, compute_residual=True,
+              incidence=_incidence(arrays, ext, "cuda"))
+    largs = _lanes(args, 3)
+    for streamed in (False, True):
+        got = fused_pd_step(*largs, **kw, streamed=streamed)
+        for k in range(3):
+            one = fused_pd_step(largs[0][k], largs[1][k], *largs[2:-1],
+                                largs[-1][k], **kw)
+            torch.cuda.synchronize()
+            for g, o in zip(got, one):
+                assert torch.equal(g[k], o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss", ["squared", "lasso", "logistic"])
+def test_cuda_wide_streams_parameters_past_shared_memory(loss):
+    """Wide nodes whose parameters pass the staging plan (squared and
+    lasso at n = 256: P / Q alone is 256 KB a node; logistic at n = 32
+    with 2,000 samples) run the streamed wide variant, within 1e-5 of
+    the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels.pd_step import plan_variant
+
+    kind = {"squared": 0, "lasso": 1, "logistic": 2}[loss]
+    if loss == "logistic":
+        n, v = 32, 24
+        arrays, ext = _loss_arrays(loss, v, n, 16, seed=7)
+        rng = np.random.default_rng(7)
+        params = list(arrays[4])
+        rows, ms = params[2].shape[0], 2000
+        mask = np.ones((rows, ms), np.float32)
+        params[1] = np.full((rows, 1), ms, np.float32)
+        params[2] = mask
+        params[4] = rng.standard_normal((rows, ms, n)).astype(np.float32)
+        params[5] = (rng.random((rows, ms)) < 0.5).astype(np.float32)
+        arrays = arrays[:4] + (tuple(params),) + arrays[5:]
+    else:
+        n, ms = 256, 0
+        arrays, ext = _loss_arrays(loss, 24, n, 16, seed=7)
+    assert plan_variant(kind, n, ms if loss == "logistic" else 0) == \
+        "streamed"
+    args = _cuda_args(arrays, "float32")
+    kw = dict(ext, loss=_port_loss(loss), reg=REGS["tv"], rho=1.9,
+              compute_residual=True)
+    key = f"{loss}/float32/wide/streamed"
+    before = fused_pd_step.variant_launches[key]
+    got = fused_pd_step(*_kernel_args(args), **kw,
+                        incidence=_incidence(arrays, ext, "cuda"))
+    want = ref.fused_pd_step_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_pd_step.variant_launches[key] == before + 1
+    _check_plain(got, want, arrays, "float32", exact=_f64(arrays, kw))
 
 
 # ---------------------------------------------------------------------------

@@ -28,6 +28,7 @@ plain version, and against L one-lane launches (bit-identical: the lane
 loop keeps the one-lane sum order).
 """
 import contextlib
+import dataclasses
 
 import numpy as np
 import pytest
@@ -581,3 +582,128 @@ def test_path_refusals():
     with pytest.raises(NotImplementedError, match="bfloat16"):
         solve_path(problem, PATH_LAMS,
                    SolverConfig(**PATH_BASE, dtype="bfloat16"))
+
+
+# ---------------------------------------------------------------------------
+# The path metrics: every lane in one evaluation
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def metric_calls(monkeypatch):
+    """Counts the evaluations of the squared loss's empirical error (one
+    per metric function call, whatever its lane count)."""
+    from repro_torch.api.losses import SquaredLoss
+
+    calls = []
+    real = SquaredLoss.empirical_error
+
+    def counted(self, data, w):
+        calls.append(w.shape[0] if w.ndim == 3 else 1)
+        return real(self, data, w)
+
+    monkeypatch.setattr(SquaredLoss, "empirical_error", counted)
+    return calls
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_path_metrics_evaluate_every_lane_at_once(path, metric_calls):
+    """A fixed-budget path evaluates its trace metrics once a metric
+    block for all its lanes (the reference vmaps them), not once a lane:
+    one call over every lane per block of the final phase, after the warm
+    solve's one-lane calls."""
+    problem, w_true = _port(1e-3)
+    cfg = SolverConfig(**PATH_BASE, **PATHS[path],
+                       compute_diagnostics=False)  # no per-lane certificate
+    got = solve_path(problem, PATH_LAMS, cfg, w_true=w_true)
+    warm, final = (cfg.warm_iters // cfg.metric_every,
+                   cfg.final_iters // cfg.metric_every)
+    assert metric_calls == [1] * warm + [len(PATH_LAMS)] * final
+    assert got.objective.shape == (len(PATH_LAMS), final)
+
+
+def test_masked_sweep_evaluates_every_lane_at_once(metric_calls):
+    """The masked tol sweep: one metrics call over every lane a block."""
+    problem, _ = _port(1e-2)
+    V, n, E = problem.num_nodes, problem.num_features, problem.graph.num_edges
+    L = len(TOL_LAMS)
+    zeros = (torch.zeros((L, V, n)), torch.zeros((L, E, n)))
+    _, _, _, _, blocks = _sweep(problem, TOL_LAMS, *zeros, 400)
+    assert metric_calls == [L] * int(blocks)
+
+
+def _per_lane_formula(problem, lam, w, w_true):
+    """The one-problem trace formula as the earlier slices wrote it (a
+    matrix product for the predictions, library sums): objective and
+    eq.-24 MSE of one lane."""
+    data, graph = problem.data, problem.graph
+    pred = torch.einsum("vmn,vn->vm", data.x, w)
+    node = (torch.sum((data.y - pred) ** 2 * data.sample_mask, dim=1)
+            / data.counts())
+    obj = (torch.sum(node * data.labeled_mask)
+           + problem.regularizer.value(graph, w, lam))
+    sq = torch.sum((w - w_true) ** 2, dim=1)
+    mse = torch.sum(torch.where(data.labeled_mask == 0, sq,
+                                torch.zeros_like(sq))) / w.shape[0]
+    return obj, mse
+
+
+@pytest.mark.parametrize("reg", ["tv", "tv2"])
+def test_lane_metrics_match_the_per_lane_formula(reg):
+    """``backends.lane_metrics`` over four lanes against the per-lane
+    formula (rtol 1e-6: sums in another order), and each lane bit for bit
+    the one-lane evaluation the lane's own solve records
+    (``make_metrics_fn``)."""
+    from repro_torch.api.regularizers import get_regularizer
+
+    problem, w_true = _port(1e-3)
+    problem = dataclasses.replace(problem, regularizer=get_regularizer(reg))
+    lams = (1e-3, 3e-3, 1e-2, 3e-2)
+    rng = np.random.default_rng(3)
+    w = torch.from_numpy(rng.standard_normal(
+        (len(lams),) + tuple(w_true.shape)).astype(np.float32))
+    g = problem.graph
+    obj, mse = backends.lane_metrics(
+        problem.loss, problem.regularizer, g.src, g.dst, g.weights,
+        problem.data, backends.lane_values(lams, "cpu"), w_true)(w)
+    assert obj.shape == mse.shape == (len(lams),)
+    for k, lam in enumerate(lams):
+        want = _per_lane_formula(problem, float(np.float32(lam)), w[k],
+                                 w_true)
+        np.testing.assert_allclose(obj[k].item(), want[0].item(), rtol=1e-6)
+        np.testing.assert_allclose(mse[k].item(), want[1].item(), rtol=1e-6)
+        one = backends.make_metrics_fn(problem.loss, problem.regularizer, g,
+                                       problem.data, float(np.float32(lam)),
+                                       w_true)(w[k])
+        assert torch.equal(one[0], obj[k]) and torch.equal(one[1], mse[k])
+
+
+def test_lane_metrics_in_lane_groups_equal_one_group(monkeypatch):
+    """Lanes whose gathers pass ``LANE_METRICS_ELEMENTS`` are evaluated
+    in groups of lanes: the same bits as one group, for a path's shared
+    graph and for ``solve_many``'s stacked graphs and data."""
+    from repro_torch.core.losses import NodeData
+
+    problem, w_true = _port(1e-3)
+    g, data = problem.graph, problem.data
+    lams = backends.lane_values((1e-3, 3e-3, 1e-2, 3e-2, 0.1), "cpu")
+    rng = np.random.default_rng(5)
+    w = torch.from_numpy(rng.standard_normal(
+        (5,) + tuple(w_true.shape)).astype(np.float32))
+    stacked = NodeData(*(torch.stack([getattr(data, k)] * 5)
+                         for k in ("x", "y", "sample_mask", "labeled_mask")))
+    cases = [(g.src, g.dst, g.weights, data, w_true),
+             (torch.stack([g.src] * 5), torch.stack([g.dst] * 5),
+              torch.stack([g.weights] * 5), stacked, None)]
+    for src, dst, weights, d, truth in cases:
+        def run():
+            return backends.lane_metrics(problem.loss, problem.regularizer,
+                                         src, dst, weights, d, lams,
+                                         truth)(w)
+        whole = run()
+        per_lane = max(src.shape[-1] * w.shape[-1],
+                       data.x.shape[-3] * data.x.shape[-2])
+        monkeypatch.setattr(backends, "LANE_METRICS_ELEMENTS", 2 * per_lane)
+        grouped = run()
+        monkeypatch.undo()
+        for a, b in zip(whole, grouped):
+            assert torch.equal(a, b)
