@@ -136,19 +136,24 @@ for _name, _variant in LANE_KERNELS.items():
 # the wide (n > 16) and streamed (parameters read from device memory)
 # variants the main path runs: kernels' line name -> the launch counters'
 # key (kernels/pd_step.py:variant_key) and source
-WIDE_SOURCE = {"squared": "src/repro_torch/csrc/pd_step_wide.cu",
-               "lasso": "src/repro_torch/csrc/pd_step_wide.cu",
-               "logistic": "src/repro_torch/csrc/pd_step_wide_logistic.cu"}
+WIDE_SOURCE = {
+    ("squared", "f32"): "src/repro_torch/csrc/pd_step_wide.cu",
+    ("squared", "bf16"): "src/repro_torch/csrc/pd_step_wide.cu",
+    ("lasso", "f32"): "src/repro_torch/csrc/pd_step_wide_lasso.cu",
+    ("lasso", "bf16"): "src/repro_torch/csrc/pd_step_wide_lasso.cu",
+    ("logistic", "f32"): "src/repro_torch/csrc/pd_step_wide_logistic.cu",
+    ("logistic", "bf16"):
+        "src/repro_torch/csrc/pd_step_wide_logistic_bf16.cu"}
 STREAMED_SOURCE = "src/repro_torch/csrc/pd_step_logistic_streamed.cu"
 NEW_VARIANTS = {
     **{f"fused_pd_step[{loss},{tag},wide]": (f"{loss}/{dt}/wide",
-                                             WIDE_SOURCE[loss])
+                                             WIDE_SOURCE[loss, tag])
        for loss in ("squared", "lasso", "logistic")
        for dt, tag in (("float32", "f32"), ("bfloat16", "bf16"))},
-    "fused_pd_step[squared,f32,wide,lanes]": ("squared/float32/wide",
-                                              WIDE_SOURCE["squared"]),
+    "fused_pd_step[squared,f32,wide,lanes]": (
+        "squared/float32/wide", WIDE_SOURCE["squared", "f32"]),
     **{f"fused_pd_step[{loss},f32,wide,streamed]": (
-        f"{loss}/float32/wide/streamed", WIDE_SOURCE[loss])
+        f"{loss}/float32/wide/streamed", WIDE_SOURCE[loss, "f32"])
        for loss in ("squared", "lasso", "logistic")},
     "fused_pd_step[logistic,f32,streamed]": ("logistic/float32/streamed",
                                              STREAMED_SOURCE),
@@ -175,7 +180,12 @@ LASSO_KW = {"alpha": 0.02, "num_inner": 30}    # the zoo's sparse_lasso
 AFFINE_TOL = 1e-5          # batched_affine vs plain version (summation order)
 ZOO_OBJ_RTOL = 1e-5        # unfused vs dense objective traces, zoo
 L2_BYTES = 50e6            # H100 L2 cache
-WIDE_NS = (17, 24, 32, 33, 64, 128)   # the wide variant's checked widths
+# the wide variant's checked widths: 32 / 33 where its prox rows leave
+# registers; for the squared and lasso losses also LAST_STAGED and one
+# more, the last width whose staged rows fit a block and the first that
+# streams
+WIDE_NS = (17, 24, 32, 33, 64, 128)
+LAST_STAGED = 239
 WIDE_N = 32                # the wide variant's full-size width
 MANY_SAMPLES = 16_384      # logistic samples a node past the staging plan
 MANY_NODES = 20_000
@@ -515,7 +525,9 @@ def phase_build(torch) -> None:
     require(sorted(logs) == ["graph_cond.cu", "pd_step.cu",
                              "pd_step_lasso.cu", "pd_step_logistic.cu",
                              "pd_step_logistic_streamed.cu",
-                             "pd_step_wide.cu", "pd_step_wide_logistic.cu",
+                             "pd_step_wide.cu", "pd_step_wide_lasso.cu",
+                             "pd_step_wide_logistic.cu",
+                             "pd_step_wide_logistic_bf16.cu",
                              "ridge_prox.cu", "sym_pinv.cu", "tv_prox.cu"],
             f"built sources {sorted(logs)}")
 
@@ -1841,7 +1853,8 @@ def phase_wide_vs_plain(torch, dev) -> dict:
 
     rows = []
     for loss, dt in VARIANTS:
-        for n in WIDE_NS:
+        edges = (LAST_STAGED, LAST_STAGED + 1) if loss != "logistic" else ()
+        for n in WIDE_NS + edges:
             reg = regs["tv" if n % 2 else "tv2"]
             args, kw = step_inputs(40, n, 16, seed=n, device=dev, loss=loss,
                                    dtype=dt)
@@ -1849,6 +1862,10 @@ def phase_wide_vs_plain(torch, dev) -> dict:
                       compute_residual=True)
             ms = args[4][4].shape[1] if loss == "logistic" else 0
             plan = plan_variant(kinds[loss], n, ms)
+            if n >= LAST_STAGED:
+                require(plan == ("staged" if n == LAST_STAGED
+                                 else "streamed"),
+                        f"{loss} at n = {n}: plan {plan}")
             got = ops.pd_step(*args, **kw)
             forced = streamed(args, kw)
             want = plain_step(*args, **kw)
@@ -1915,7 +1932,8 @@ def phase_wide_vs_plain(torch, dev) -> dict:
              max(check["dw"], check["du"]))
     torch.cuda.synchronize()
     emit({"phase": "wide_vs_plain", "seconds": time.perf_counter() - t0,
-          "widths": list(WIDE_NS), "tol_f32": STEP_TOL,
+          "widths": list(WIDE_NS) + [LAST_STAGED, LAST_STAGED + 1],
+          "tol_f32": STEP_TOL,
           "tol_f32_100_iterations": SOLVE_TOL,
           "tol_bf16": "one bf16 ulp at the state's scale", "cases": rows,
           "streamed_by_plan": streamed_rows,
@@ -2284,9 +2302,9 @@ def phase_wide_full_size(torch, dev, graph, assign) -> list:
     one-lane fused solves and its first against a one-lane dense solve;
     then that instance in float32 (1000
     iterations) and bfloat16 (200), lasso and logistic in float32 and
-    bfloat16 (20 iterations: the kernel takes ~0.17 s and ~0.23 s a step
-    for them here and the dense backend ~0.35 s and ~1.5 s, so the
-    script's time allows no more), each against the dense backend over
+    bfloat16 (20 iterations: the dense backend, which holds each of them
+    over its whole budget, takes ~0.35 s and ~1.5 s an iteration here, so
+    the script's time allows no more), each against the dense backend over
     its whole budget, the float32 squared one with the float64 yardstick
     (``full_size_solve``'s ``exact``); then both routes' times of a
     ROUTE_ITERS-iteration lasso and logistic solve (``route_seconds``).
@@ -3806,10 +3824,11 @@ def compact_build_seconds(lt) -> float:
 
 
 def save_instance(path: Path, device="cuda") -> None:
-    """Generate the full-size instance and save the graph, the squared
-    loss's data and the logistic and lasso data of ``loss_instances`` to
-    ``path`` (.npz), so that every process of an A/B comparison solves
-    the same instances."""
+    """Generate the full-size instance and save the graph, its clusters,
+    the squared loss's data and the logistic and lasso data of
+    ``loss_instances`` to ``path`` (.npz), so that every process of an
+    A/B comparison solves the same instances (the wide ones are drawn
+    from their seed on the card in each process: ``wide_instances``)."""
     graph, data, w_true, assign = make_clustered(FULL_NODES, seed=0,
                                                  device=device)
     others = loss_instances(graph, assign, seed=1)
@@ -3821,7 +3840,7 @@ def save_instance(path: Path, device="cuda") -> None:
         arrays.update({f"{loss}_{k}": getattr(prob.data, k).cpu().numpy()
                        for k in DATA_FIELDS})
     np.savez(path, num_nodes=graph.num_nodes, w_true=w_true.cpu().numpy(),
-             **arrays)
+             assign=np.asarray(assign), **arrays)
 
 
 @contextlib.contextmanager
@@ -3857,16 +3876,19 @@ def one_phase(keep: str):
 
 def time_variants(torch, problems: dict, lt, compact: bool,
                   device) -> dict:
-    """Each ``fused_pd_step`` variant alone on the saved instance, from a
-    state that moves: ms per ``iters=1`` step, and the step with only its
-    node phase (D^T u gather, prox, z, KM) or only its edge phase (D z,
-    resolvent, KM) launched.  ``compact``: the checkout's kernel reads
-    the compact incidence."""
+    """Each ``fused_pd_step`` variant of ``problems`` ({loss: Problem})
+    alone, in float32 and bfloat16 storage, from a state that moves: ms
+    per ``iters=1`` step, and the step with only its node phase (D^T u
+    gather, prox, z, KM) or only its edge phase (D z, resolvent, KM)
+    launched.  ``compact``: the checkout's kernel reads the compact
+    incidence."""
     from repro_torch.api import backends
     from repro_torch.kernels import ops
 
     rows = {}
     for loss, dtype in VARIANTS:
+        if loss not in problems:
+            continue
         problem, store = problems[loss], getattr(torch, dtype)
         (params_s, pkeys, _, tau_s, _, sig2, src2, dst2, la2, _) = \
             backends._fused_setup(problem.graph, problem.data, problem.lam,
@@ -3897,6 +3919,23 @@ def time_variants(torch, problems: dict, lt, compact: bool,
     return rows
 
 
+def time_wide_variants(torch, graph, assign, lt, compact: bool,
+                       device) -> dict:
+    """``time_variants`` for the wide kernel: each loss of
+    ``wide_instances`` at n = WIDE_N on the saved graph, drawn from its
+    seed on the card (one loss at a time: the squared one's samples and
+    P are ~8 GB), float32 and bfloat16."""
+    rows = {}
+    for loss in ("squared", "lasso", "logistic"):
+        problem = wide_instances(graph, assign, seed=2,
+                                 losses=(loss,))[loss][0]
+        rows.update({f"{k}/wide": v for k, v in time_variants(
+            torch, {loss: problem}, lt, compact, device).items()})
+        del problem
+        torch.cuda.empty_cache()
+    return rows
+
+
 def time_fused_solve(root: Path, path: Path, reps: int = 3,
                      device="cuda") -> dict:
     """In this process, with the ``repro_torch`` of checkout ``root``:
@@ -3904,10 +3943,11 @@ def time_fused_solve(root: Path, path: Path, reps: int = 3,
     after the kernel library is built: the set-up a solve pays), the
     fused squared float32 continuation solve (after one warm-up solve),
     and every ``fused_pd_step`` variant alone per step with its phase
-    split (``time_variants``).  Uses only what every slice of the port
-    since the third has, and passes the compact incidence where the
-    checkout's kernel reads it, so it times the parent checkout as
-    well."""
+    split (``time_variants``; the wide ones at n = WIDE_N:
+    ``time_wide_variants``).  Uses only what every slice of the port
+    since the third has (the wide rows: since the eighth), and passes the
+    compact incidence where the checkout's kernel reads it, so it times
+    the parent checkout as well."""
     import inspect
 
     import torch
@@ -3952,6 +3992,8 @@ def time_fused_solve(root: Path, path: Path, reps: int = 3,
         rates.append((cfg.warm_iters + cfg.final_iters)
                      / (time.perf_counter() - t0))
     out["kernels"] = time_variants(torch, problems, lt, compact, device)
+    out["wide_kernels"] = time_wide_variants(torch, graph, z["assign"], lt,
+                                             compact, device)
     if compact:
         out["kernel_digests"] = kernel_digests(torch, device)
     return {**out, "iterations_per_s": rates}
@@ -3962,7 +4004,8 @@ def ab_main(argv: list) -> int:
     in turns (parent, change, change, parent), each in its own process
     on the saved full-size instances: the fused squared float32 solve,
     and every ``fused_pd_step`` variant's ms per step with its node and
-    edge phases (``time_variants``), and the register-tile kernel's
+    edge phases (``time_variants``; the wide variant at n = WIDE_N on
+    the same graph, ``time_wide_variants``), and the register-tile kernel's
     outputs on ``kernel_vs_plain``'s inputs, which must be the same bits
     in every process (``kernel_digests``).  ``--time-solve ROOT NPZ``:
     one such process."""

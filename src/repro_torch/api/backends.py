@@ -460,7 +460,7 @@ def _fused_window_fits(problem: Problem,
     samples a node (staging the prox parameters or streaming them,
     ``kernels.pd_step.plan_variant``); what it cannot take, the
     counterpart of the TPU's VMEM cap, is a wide logistic node whose
-    Hessian passes one warp's shared memory (n > 335,
+    Hessian passes one warp's shared memory (n > 336,
     ``kernels.pd_step.kernel_takes``).  Such a problem runs unfused.
     """
     num_samples = problem.data.x.shape[-2]

@@ -1,8 +1,9 @@
 // Fused primal-dual step for Hopper: the launch arguments shared by the
 // entry point (pd_step.cu) and the per-variant translation units
 // (pd_step.cu: squared, pd_step_lasso.cu, pd_step_logistic.cu,
-// pd_step_logistic_streamed.cu, pd_step_wide.cu, pd_step_wide_logistic.cu),
-// which kernels/_build.py compiles in parallel.  See pd_step_impl.cuh
+// pd_step_logistic_streamed.cu, pd_step_wide.cu, pd_step_wide_lasso.cu,
+// pd_step_wide_logistic.cu, pd_step_wide_logistic_bf16.cu), which
+// kernels/_build.py compiles in parallel.  See pd_step_impl.cuh
 // (n <= 16) and pd_step_wide.cuh (n > 16) for what the kernel computes
 // and how.
 #pragma once
@@ -79,7 +80,8 @@ struct PdArgs {
 // kernels/_build.py compiles them in parallel: the register-tile kernel
 // (n <= 16) with staged prox parameters per loss, the logistic loss's
 // streamed one (parameters read from device memory), and the wide kernel
-// (n > 16) staged or streamed.
+// (n > 16) staged or streamed (the logistic loss's in one unit per
+// storage type).
 cudaError_t pd_launch_squared(const PdArgs& a, cudaStream_t s);
 cudaError_t pd_launch_lasso(const PdArgs& a, cudaStream_t s);
 cudaError_t pd_launch_logistic(const PdArgs& a, cudaStream_t s);
@@ -90,5 +92,7 @@ cudaError_t pd_launch_wide_lasso(const PdArgs& a, cudaStream_t s,
                                  bool staged);
 cudaError_t pd_launch_wide_logistic(const PdArgs& a, cudaStream_t s,
                                     bool staged);
+cudaError_t pd_launch_wide_logistic_bf16(const PdArgs& a, cudaStream_t s,
+                                         bool staged);
 
 }  // namespace repro_pd

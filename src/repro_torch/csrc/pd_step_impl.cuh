@@ -176,8 +176,9 @@ struct Plan {
   int ids_cap;
   int ids_offset;    // shared float offset of the staged ids
   int res_offset;    // shared float offset of num_lanes residual maxima
-  // the wide variant (pd_step_wide.cuh) gives each node to one of nw
-  // warps with `scratch` shared floats each at scratch_offset
+  // the wide variant (pd_step_wide.cuh): nw node warps a block, each
+  // with `scratch` shared floats (its slice); `lanes` and `vec` are its
+  // edge group and vector bits there (scratch_offset unused)
   int nw;
   int scratch;
   int scratch_offset;

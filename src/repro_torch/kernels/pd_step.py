@@ -15,15 +15,15 @@ version, :func:`kernels.ref.fused_pd_step_ref`, reads the padded tables
 
 Variants.  Up to ``TILE_FEATURES`` features a node's row is a register
 tile of one thread (``csrc/pd_step_impl.cuh``); past it the wide kernel
-gives each node to a warp, its features split across the warp's threads
+gives each node to a warp, its prox a row a thread
 (``csrc/pd_step_wide.cuh``), for any n.  Each stages its tile's prox
 parameters in shared memory where the launch's plan fits a block
 (:func:`staging_bytes`: a node's parameters, and over lanes one slot a
 lane), and otherwise reads them from device memory (the streamed
 variant, :func:`streaming_bytes`; the same arithmetic, so the same
 bits).  A launch neither plan fits is refused, naming the limit: the
-wide logistic variant keeps a node's Hessian (n (n + 1) / 2 floats) in
-one warp's shared memory, which bounds n at 335 in one lane
+wide logistic variant keeps a node's Cholesky factor (n (n + 1) / 2
+floats) in one warp's shared memory, which bounds n at 336 in one lane
 (:func:`kernel_takes`).
 
 Build: ``kernels/_build.py`` compiles it with the port's other CUDA
@@ -332,7 +332,7 @@ def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
             + (f" with {num_samples} samples a node" if kind == 2 else "")
             + (f" over {lanes} lanes" if lanes else "")
             + (": the wide logistic variant keeps a node's Hessian, "
-               "n (n + 1) / 2 floats, and five rows of n in one warp's "
+               "n (n + 1) / 2 floats, and four rows of n in one warp's "
                "shared memory" if kind == 2 and n > TILE_FEATURES else "")
             + " (the solver runs such a problem unfused)")
 

@@ -27,7 +27,7 @@ version in float32 and one bf16 ulp in bfloat16; logistic nodes with
 thousands of samples (small tiles, and the opt-in to more than 48 KB of
 shared memory) hold to 1e-5; past the staging limit the kernel streams
 them (bit-identical to staging them where both apply) and the solver
-fuses them; a wide logistic node past n = 335 is refused.
+fuses them; a wide logistic node past n = 336 (the plan's limit) is refused.
 """
 import dataclasses
 
@@ -380,7 +380,7 @@ def test_fused_gate_runs_unfused_only_past_the_kernels_limit(cuda_gate,
                                                              monkeypatch):
     """What neither of the kernel's plans takes (on the card: a wide
     logistic node whose Hessian, n (n + 1) / 2 floats, passes one warp's
-    shared memory, n > 335 in one lane; stubbed here) runs unfused,
+    shared memory, n > 336 in one lane; stubbed here) runs unfused,
     within 1e-6 of the dense backend, and bf16 storage is refused there,
     as everywhere off the fused path."""
     _plan_stubs(monkeypatch, staged=False, streamed=False)
@@ -677,12 +677,44 @@ def test_cuda_path_past_the_lane_plan_runs_fused():
 @pytest.mark.cuda
 def test_cuda_wide_logistic_limit():
     """The one width the kernel refuses: a wide logistic node keeps its
-    Hessian, n (n + 1) / 2 floats, and five rows of n in one warp's
-    shared memory, so n = 335 is the widest it takes in one lane; at 336
-    the wrapper refuses, naming the Hessian, and the gate routes such a
-    problem unfused."""
+    Hessian (factored in place), n (n + 1) / 2 floats, and four rows of
+    n in one warp's shared memory.  The widest n it takes in one lane is
+    read from the kernel's own streamed plan against its limit, not
+    written down: the kernel takes that n, streamed, and refuses one
+    feature more, where the wrapper names the Hessian and the gate
+    routes such a problem unfused."""
     _need_card()
     loss = _many_samples(8, "cpu").loss
-    assert pd_step.kernel_takes(loss, 335, 8)
-    assert not pd_step.kernel_takes(loss, 336, 8)
-    assert pd_step.plan_variant(2, 335, 8) == "streamed"
+
+    def fits(n):
+        need, limit = pd_step.streaming_bytes(2, n, 8)
+        return need <= limit
+    widest = max(n for n in range(pd_step.TILE_FEATURES + 1, 1024)
+                 if fits(n))
+    assert all(fits(n) for n in range(pd_step.TILE_FEATURES + 1, widest))
+    assert pd_step.kernel_takes(loss, widest, 8)
+    assert not pd_step.kernel_takes(loss, widest + 1, 8)
+    assert pd_step.plan_variant(2, widest, 8) == "streamed"
+    problem = _wide_logistic(widest + 1, "cuda")
+    args, kw = _step(problem=problem, device="cuda")
+    with pytest.raises(NotImplementedError, match="Hessian"):
+        _kernel(args, kw)
+    assert not backends._should_fuse(problem,
+                                     SolverConfig(backend="pallas"))
+
+
+def _wide_logistic(n, device):
+    """A logistic problem with ``n`` features and 8 samples a node on a
+    40-node SBM, Bernoulli labels, every other node labeled."""
+    from repro_torch.core.losses import NodeData
+
+    rng = np.random.default_rng(n)
+    g, assign = sbm_graph(rng, (20, 20), 0.3, 0.05, device=device)
+    x = rng.standard_normal((40, 8, n)).astype(np.float32)
+    w = rng.standard_normal((2, n))[assign % 2] / np.sqrt(n)
+    y = (rng.random((40, 8)) < 1.0 / (1.0 + np.exp(
+        -np.einsum("vmn,vn->vm", x, w)))).astype(np.float32)
+    labeled = (np.arange(40) % 2 == 0).astype(np.float32)
+    data = NodeData(*(torch.from_numpy(a).to(device) for a in (
+        x, y, np.ones((40, 8), np.float32), labeled)))
+    return Problem.create(g, data, 1e-2, loss="logistic", device=device)

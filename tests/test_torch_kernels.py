@@ -540,7 +540,16 @@ def test_cuda_stop_word_and_in_place_out(loss):
             assert float(r_o) == 0.0
 
 
+# the wide kernel's widths: past the register tile; 32 and 33 where the
+# prox rows leave registers; and for the squared and lasso losses 239
+# and 240, the last width whose staged rows fit a block and the first
+# that streams (the logistic plan stages its samples, not an n x n
+# matrix: its own edges are the streamed tests' below)
 WIDE_NS = [17, 24, 32, 33, 64, 128]
+LAST_STAGED = 239
+WIDE_CASES = ([(loss, n) for loss in sorted(PKEYS) for n in WIDE_NS]
+              + [(loss, n) for loss in ("lasso", "squared")
+                 for n in (LAST_STAGED, LAST_STAGED + 1)])
 
 
 def _f64(arrays, kw):
@@ -592,17 +601,18 @@ def _check_plain(got, want, arrays, dtype, tol=1e-5, exact=None):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("loss", sorted(PKEYS))
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n", WIDE_NS)
+@pytest.mark.parametrize("loss,n", WIDE_CASES)
 def test_cuda_wide_variants_match_plain_version(loss, dtype, n):
-    """The wide kernel (n > 16, a node a warp) against its plain version:
-    one call on a banded layout (1e-5; bf16 one ulp), counted under its
-    ``"/wide"`` key; the streamed variant forced on the same inputs gives
-    the staged variant's bits; and 100 iterations in one launch on the
-    whole-graph block within 1e-4 (bf16: one ulp more; the squared loss
-    with a ridge prox's P, ``_ridge``).  Float32 limits grow to twice the
-    plain version's own float64 distance where that is larger."""
+    """The wide kernel (n > 16, a node a warp) against its plain version
+    at the widths where its layout changes (``WIDE_NS``): one call on a
+    banded layout (1e-5; bf16 one ulp), counted under its ``"/wide"``
+    key (``"/streamed"`` past the staging plan); the streamed variant
+    forced on the same inputs gives the staged variant's bits; and 100
+    iterations in one launch on the whole-graph block within 1e-4 (bf16:
+    one ulp more; the squared loss with a ridge prox's P, ``_ridge``).
+    Float32 limits grow to twice the plain version's own float64 distance
+    where that is larger."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     from repro_torch.kernels.pd_step import plan_variant
@@ -617,13 +627,15 @@ def test_cuda_wide_variants_match_plain_version(loss, dtype, n):
     key = f"{loss}/{dtype}/wide"
     if plan_variant(kind, n, ms) != "staged":
         key += "/streamed"
+    if n >= LAST_STAGED:
+        assert key.endswith("/streamed") == (n > LAST_STAGED)
     before = fused_pd_step.variant_launches[key]
     got = fused_pd_step(*_kernel_args(args), **kw)
+    assert fused_pd_step.variant_launches[key] == before + 1
     again = fused_pd_step(*_kernel_args(args), **kw, streamed=True)
     want = ref.fused_pd_step_ref(*args, **{k: v for k, v in kw.items()
                                            if k != "incidence"})
     torch.cuda.synchronize()
-    assert fused_pd_step.variant_launches[key] == before + 1
     for a, b in zip(got, again):
         assert torch.equal(a, b)
     _check_plain(got, want, arrays, dtype, exact=_f64(arrays, kw))
