@@ -27,13 +27,15 @@ lanes under sync debug mode "error", and ``solve_many`` of four problems
 on two graph structures; each lane kernel against its plain version and
 against one-lane launches.  The fused kernel past its register tile
 (``wide_vs_plain``: the wide variant, a node a warp, for every loss and
-storage type at n = 17-128, and the streamed variants that read the
-prox parameters from device memory, against the plain version, over
-lanes and bit-identical to the staged variant; ``wide_features``: n = 17
-and 33 through the fused route, a tol solve captured under the IF node).
+storage type at n = 17-128, and the streamed variants past the staging
+plan, against the plain version, over lanes, the wide one bit-identical
+to the staged variant and the register tile's logistic one within
+STEP_TOL of it; ``wide_features``: n = 17 and 33 through the fused
+route, a tol solve captured under the IF node).
 Then the two lambda paths that once raised (``lane_faults``: a logistic
 path past the kernel's staging plan runs the fused lanes streamed, each
-lane bit-identical to a one-lane solve; 4097 lambdas launch in lane
+lane within SOLVE_TOL of a one-lane solve and six streamed lanes the
+bits of six one-lane streamed launches; 4097 lambdas launch in lane
 groups, bit-identical to one-lane solves), the federated runtime in synchronous
 mode against the dense backend on §5 and the zoo (``federated_s5``) and
 at full size with partial participation, int8 messages, its ledger and a
@@ -55,7 +57,8 @@ float32 and bfloat16, against the dense backend, and a 6-lambda path
 through the wide lanes), ``wide_streamed`` (wide nodes past the staging
 plan, 2,000 nodes) and ``many_samples_full_size`` (logistic nodes of
 16,384 samples on 20,000 nodes, streamed, in float32 and bfloat16 and
-over a 6-lambda path, against the dense backend).
+over a 6-lambda path, against the dense backend; the kernel alone at
+the instance's 10% labeled nodes and with every node labeled).
 Where a tol engine replays a captured block, the kernels it ran are
 counted on the card by the kernels themselves (``device_executions``):
 the wrappers' launch counters count only the launches made outside a
@@ -189,7 +192,7 @@ LAST_STAGED = 239
 WIDE_N = 32                # the wide variant's full-size width
 MANY_SAMPLES = 16_384      # logistic samples a node past the staging plan
 MANY_NODES = 20_000
-MANY_ITERS = 20            # their solves' depth (~0.2 s a kernel step)
+MANY_ITERS = 20            # their solves' depth (the dense one: ~0.6 s a step)
 ROUTE_ITERS = 5            # fused against unfused route: a solve's depth
 # the §5 shapes of the port's kernel tests (tests/test_torch_kernels.py)
 TV_SHAPES = [(7, 2), (512, 2), (1000, 16), (33, 5), (1, 1), (65, 3)]
@@ -307,6 +310,13 @@ def plain_step(*args, incidence, **kw):
     the kernel reads."""
     from repro_torch.kernels.ref import fused_pd_step_ref
     return fused_pd_step_ref(*args, **kw)
+
+
+def forced_streamed(kernel, args, kw):
+    """The kernel wrapper on ``kernels.ops.pd_step``'s arguments (it
+    takes the compact incidence in ``kw`` and no padded tables,
+    ``args[2:4]``), its streamed variant forced."""
+    return kernel(*args[:2], *args[4:], **kw, streamed=True)
 
 
 def step_inputs(v, n, bv, seed, device, loss="squared", dtype="float32",
@@ -478,9 +488,14 @@ def step_cost(args, kw, loss) -> dict:
     the memory rate, against the float operations this data needs over
     the f32 rate.  The incidence counts as the compact form the kernel
     reads (``kw["incidence"]``: an int32 per in-edge, a (first, count)
-    run and a row offset per node).  Beside it: the CSR count of the
-    earlier slices (an int32 id and an f32 sign per filled slot plus row
-    offsets) and the bound with that count, and the padded tables."""
+    run and a row offset per node).  The lasso's and logistic's prox of
+    an unlabeled node returns v whatever its parameters hold, so their
+    prox parameter rows and prox flops count for labeled nodes only (the
+    ``labeled`` column for every node); ``bound_ms_all_nodes`` is the
+    bound with every node's, as the earlier slices counted it.  Beside
+    them: the CSR count of the earlier slices (an int32 id and an f32
+    sign per filled slot plus row offsets) and the bound with that
+    count, and the padded tables."""
     w_store, u_store, inc_e, inc_s, params, tau, src, dst, sg, la = args
     nb = src.shape[0] // kw["block_edges"]
     n = w_store.shape[-1]
@@ -491,16 +506,29 @@ def step_cost(args, kw, loss) -> dict:
     filled = int((inc_s != 0).sum())
     compact = sum(t.numel() * t.element_size() for t in kw["incidence"])
     csr = 8 * filled + 4 * (inc_s.shape[0] + 1)
-    rest = sum(t.numel() * t.element_size() for t in
-               (w_store, u_store, *params, tau, src, dst, sg, la))
+    state = sum(t.numel() * t.element_size() for t in
+                (w_store, u_store, tau, src, dst, sg, la))
+    prm_all = sum(t.numel() * t.element_size() for t in params)
+    prox_nodes, prm = nodes, prm_all
+    if loss.name in ("lasso", "logistic"):      # params[0]: "labeled"
+        prox_nodes = int((params[0] > 0).sum())
+        prm = params[0].numel() * params[0].element_size() + sum(
+            t[0].numel() * t.element_size() for t in params[1:]) * prox_nodes
     written = lanes * w_store.element_size() * n * (nodes + edges)
-    flops = lanes * (2 * filled * n             # signed gather-sum D^T u
-                     + nodes * (prox_flops(loss, n, params) + 6 * n)
-                     + edges * 9 * n)           # D z, resolvent, KM
-    return {**bound(compact + rest, written, flops),
+
+    def flops(prox_count):
+        return lanes * (2 * filled * n          # signed gather-sum D^T u
+                        + nodes * 6 * n
+                        + prox_count * prox_flops(loss, n, params)
+                        + edges * 9 * n)        # D z, resolvent, KM
+    return {**bound(compact + state + prm, written, flops(prox_nodes)),
+            "prox_nodes": prox_nodes,
+            "bound_ms_all_nodes": bound(compact + state + prm_all, written,
+                                        flops(nodes))["bound_ms"],
             "incidence_bytes_compact": compact,
             "incidence_bytes_csr": csr,
-            "bound_ms_csr": bound(csr + rest, written, flops)["bound_ms"],
+            "bound_ms_csr": bound(csr + state + prm, written,
+                                  flops(prox_nodes))["bound_ms"],
             "incidence_bytes_padded": (inc_e.numel() * inc_e.element_size()
                                        + inc_s.numel() * inc_s.element_size())}
 
@@ -1826,13 +1854,18 @@ def phase_wide_vs_plain(torch, dev) -> dict:
     ulp; the squared loss with a ridge prox's P); float32 limits grow to
     twice the plain version's own distance from its float64 run where
     that is larger; three lanes in one launch, each bit-identical to a one-lane
-    launch; the streamed variant forced on the same inputs, bit-identical
-    to the staged one (both read each parameter as its storage value
-    widened to float32 and run the same arithmetic).  Then the plan's own
-    streamed launches: logistic nodes of 15,000 samples at n = 2 (the
-    register tile), squared and lasso at n = 256 (P / Q alone 256 KB a
-    node) and logistic at n = 32 with 2,000 samples (the wide kernel).
-    Returns the max error per kernels' line name."""
+    launch; the wide streamed variant forced on the same inputs,
+    bit-identical to the staged one (both read each parameter as its
+    storage value widened to float32 and run the same arithmetic).  The
+    register tile's streamed logistic variant forced where the staged one
+    applies (7,000 samples at n = 2): within STEP_TOL (bf16 one ulp) of
+    the staged launch and of the plain version (it sums a labeled node's
+    samples over a block, in another order), bit-identical over two
+    launches.  Then the plan's own streamed launches: logistic nodes of
+    15,000 samples at n = 2 (the register tile), squared and lasso at n =
+    256 (P / Q alone 256 KB a node) and logistic at n = 32 with 2,000
+    samples (the wide kernel).  Returns the max error per kernels' line
+    name."""
     from repro_torch.api.regularizers import SquaredTV, TotalVariation
     from repro_torch.kernels import ops
     from repro_torch.kernels.pd_step import (fused_pd_step, plan_variant,
@@ -1849,7 +1882,7 @@ def phase_wide_vs_plain(torch, dev) -> dict:
                 errs[name] = max(errs[name], err)
 
     def streamed(args, kw):
-        return fused_pd_step(*args[:2], *args[4:], **kw, streamed=True)
+        return forced_streamed(fused_pd_step, args, kw)
 
     rows = []
     for loss, dt in VARIANTS:
@@ -1901,14 +1934,28 @@ def phase_wide_vs_plain(torch, dev) -> dict:
                  max(one_call["dw"], one_call["du"], hundred["dw"],
                      hundred["du"]))
     # the register tile's streamed variant, forced where both apply
+    tile_rows = []
     for dt in ("float32", "bfloat16"):
         args, kw = step_inputs(40, 2, 16, seed=2, device=dev,
                                loss="logistic", dtype=dt, samples=7000)
         kw.update(loss=port_loss("logistic"), reg=regs["tv"], rho=1.9,
                   compute_residual=True)
-        same = all(torch.equal(a, b) for a, b in
-                   zip(ops.pd_step(*args, **kw), streamed(args, kw)))
-        require(same, f"logistic/{dt}: streamed differs from staged")
+        staged = ops.pd_step(*args, **kw)
+        forced = streamed(args, kw)
+        again = streamed(args, kw)
+        want = plain_step(*args, **kw)
+        torch.cuda.synchronize()
+        row = {"dtype": dt, "samples": 7000,
+               "vs_staged": check_step(torch, forced, staged, args, dt),
+               "vs_plain": check_step(torch, forced, want, args, dt),
+               "bit_identical_relaunch": all(
+                   torch.equal(a, b) for a, b in zip(forced, again))}
+        tile_rows.append(row)
+        require(row["vs_staged"]["ok"] and row["vs_plain"]["ok"]
+                and row["bit_identical_relaunch"],
+                f"logistic/{dt}: forced streamed vs staged and plain {row}")
+        note(variant_key("logistic", getattr(torch, dt), 2, False),
+             max(row["vs_plain"]["dw"], row["vs_plain"]["du"]))
     # the plan's own streamed launches
     streamed_rows = []
     for loss, n, samples in (("logistic", 2, 15_000), ("squared", 256, None),
@@ -1936,6 +1983,7 @@ def phase_wide_vs_plain(torch, dev) -> dict:
           "tol_f32": STEP_TOL,
           "tol_f32_100_iterations": SOLVE_TOL,
           "tol_bf16": "one bf16 ulp at the state's scale", "cases": rows,
+          "register_tile_streamed_forced": tile_rows,
           "streamed_by_plan": streamed_rows,
           "max_abs_dw_du": errs})
     return errs
@@ -2431,18 +2479,52 @@ def many_samples_instance(torch, dev):
                           1e-3, loss="logistic", device=dev), w_true
 
 
+def streamed_alone(torch, dev, problem) -> dict:
+    """The streamed register-tile kernel alone on ``problem`` (the
+    many-sample instance) in float32 and bfloat16: ms per ``iters=1``
+    step, the launches counted and the bound (labeled nodes' prox, and
+    every node's: ``step_cost``), at the instance's own labeled nodes
+    and with every node labeled (the same tensors, the labeled column one
+    wherever a node has samples)."""
+    from repro_torch.api import backends
+    from repro_torch.kernels import ops
+
+    lt = backends._graph_layout(problem.graph)
+    rows = {}
+    for dt in ("float32", "bfloat16"):
+        args, kw = problem_args(torch, problem, lt, getattr(torch, dt), dev)
+        params = args[4]
+        every = (params[1] > 0).to(params[0].dtype)
+        for share, labeled in (("instance", params[0]), ("all", every)):
+            a = args[:4] + ((labeled,) + params[1:],) + args[5:]
+            reset_launches()
+            ms = cuda_ms(lambda _: ops.pd_step(*a, **kw), reps=20)
+            cost = step_cost(a, kw, problem.loss)
+            rows[f"{dt}/{share}"] = {
+                "ms_per_step": ms,
+                "launches": read_launches()["fused_pd_step_variants"],
+                "labeled_nodes": cost["prox_nodes"],
+                **{k: cost[k] for k in ("bound_ms", "bound_by",
+                                        "bound_ms_all_nodes", "bytes_read",
+                                        "flops")}}
+        del args, params, every, a
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_many_samples_full_size(torch, dev) -> list:
     """The streamed register-tile variant at full size: logistic nodes of
     MANY_SAMPLES samples (``many_samples_instance``), fused in float32
     and bfloat16, MANY_ITERS iterations each, against the dense backend's
-    MANY_ITERS; and a 6-lambda ``solve_path`` through the fused lanes
-    (streamed too; 10 + 10 iterations), each lane against
-    a one-lane fused solve and the first against a one-lane dense solve.
-    The depth is cut to what the script's time allows: a step takes the
-    kernel ~0.2 s here (one thread a node re-reads its 256 KB of samples
-    in each Newton step), the dense backend ~0.6 s and the plain version
-    ~0.4 s.  Then both routes' times of a ROUTE_ITERS-iteration solve
-    (``route_seconds``).  Returns the kernels' entries."""
+    MANY_ITERS; the kernel alone at the instance's 10% labeled nodes and
+    with every node labeled (``streamed_alone``); and a 6-lambda
+    ``solve_path`` through the fused lanes (streamed too; 10 + 10
+    iterations), each lane against a one-lane fused solve and the first
+    against a one-lane dense solve.  The depth is cut to what the
+    script's time allows: a step takes the dense backend ~0.6 s here and
+    the plain version ~0.4 s.  Then both routes' times of a
+    ROUTE_ITERS-iteration solve (``route_seconds``).  Returns the
+    kernels' entries."""
     from repro_torch.api import SolverConfig
 
     t0 = time.perf_counter()
@@ -2459,6 +2541,7 @@ def phase_many_samples_full_size(torch, dev) -> list:
         rows.append(row)
         entries.append(entry)
     del dense
+    alone = streamed_alone(torch, dev, problem)
     routes = route_seconds(torch, problem, ROUTE_ITERS)
     path_cfg = SolverConfig(backend="pallas", rho=1.9, metric_every=10,
                             warm_iters=10, final_iters=10)
@@ -2474,7 +2557,8 @@ def phase_many_samples_full_size(torch, dev) -> list:
           "nodes": MANY_NODES, "samples_per_node": MANY_SAMPLES,
           "data_bytes": sum(t.numel() * t.element_size() for t in (
               problem.data.x, problem.data.y, problem.data.sample_mask)),
-          "runs": rows, "path": row, "routes": routes})
+          "runs": rows, "kernel_alone": alone, "path": row,
+          "routes": routes})
     del problem
     torch.cuda.empty_cache()
     return entries
@@ -3413,9 +3497,11 @@ def phase_lane_faults(torch, dev) -> None:
     F2 under "Fixed").  F1: a logistic problem whose nodes (14,523
     samples at n = 2) fit the kernel's staging plan as one lane but not
     as six; ``solve_path`` over six lambdas runs the fused lanes with the
-    parameters streamed, each lane bit-identical to a one-lane (staged)
-    fused solve from the path's warm start, within 1e-4 of the dense
-    path.  F2: the
+    parameters streamed, each lane within SOLVE_TOL of a one-lane
+    (staged) fused solve from the path's warm start (the streamed variant
+    sums a labeled node's samples over a block, in another order) and of
+    the dense path; on one step's inputs the six-lane streamed launch
+    gives the bits of six one-lane streamed launches.  F2: the
     §5 instance over 4097 lambdas through the fused lanes: each step
     launches a group of MAX_LANES lanes and a group of one, and the
     first and last lanes equal one-lane fused solves from the same warm
@@ -3425,7 +3511,7 @@ def phase_lane_faults(torch, dev) -> None:
     from repro_torch.data.synthetic import (make_classification_data,
                                             make_sbm_regression)
     from repro_torch.engine import default_warm_lam
-    from repro_torch.kernels import pd_step
+    from repro_torch.kernels import ops, pd_step
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(LANE_WINDOW_SAMPLES)
@@ -3448,21 +3534,40 @@ def phase_lane_faults(torch, dev) -> None:
     f1_warm = backends.solve_pallas(problem.with_lam(default_warm_lam(
         float(np.max(PATH_LAMS)))), cfg.replace(num_iters=cfg.warm_iters,
                                                 compute_diagnostics=False))
-    f1_identical = {}
+    f1_one_lane_dw = {}
     for k in (0, len(PATH_LAMS) - 1):
         lam = float(PATH_LAMS[k])
         u0 = problem.regularizer.project_dual(f1_warm.u, problem.graph, lam)
         one = backends._solve_fused(problem.with_lam(lam), cfg.replace(
             num_iters=cfg.final_iters, compute_diagnostics=False),
             w0=f1_warm.w, u0=u0)
-        f1_identical[k] = bool(torch.equal(one.w, got.w[k]))
+        f1_one_lane_dw[k] = max_diff(one.w, got.w[k])
     require(f1_launches["lanes"]["fused_pd_step"].get(
                 "logistic/float32/streamed", 0) > 0
             and not f1_launches["lanes"]["tv_prox"],
             f"F1 path did not run the streamed fused lanes: {f1_launches}")
-    require(all(f1_identical.values()),
-            f"F1 lanes vs one-lane fused solves {f1_identical}")
+    require(all(d <= SOLVE_TOL for d in f1_one_lane_dw.values()),
+            f"F1 lanes vs one-lane fused solves |dw| {f1_one_lane_dw}")
     require(f1_dw <= SOLVE_TOL, f"F1 path vs dense path |dw| = {f1_dw}")
+    # one step's inputs: the six-lane launch (streamed by the plan) and
+    # six one-lane launches with the streamed variant forced
+    args, kw = problem_args(torch, problem, backends._graph_layout(g),
+                            torch.float32, dev)
+    largs = lane_args(torch, args, len(PATH_LAMS))
+    reset_launches()
+    lane_out = ops.pd_step(*largs, **kw)
+    step_launches = read_launches()
+    ones = [forced_streamed(pd_step.fused_pd_step, one_lane(largs, k), kw)
+            for k in range(len(PATH_LAMS))]
+    torch.cuda.synchronize()
+    f1_step_identical = all(torch.equal(lane_out[i][k], one[i])
+                            for k, one in enumerate(ones) for i in (0, 1))
+    require(step_launches["lanes"]["fused_pd_step"].get(
+                "logistic/float32/streamed", 0) == 1 and f1_step_identical,
+            f"F1 step: six streamed lanes vs six one-lane streamed "
+            f"launches: bit-identical {f1_step_identical}, launches "
+            f"{step_launches}")
+    del args, largs, lane_out, ones
 
     s5 = make_sbm_regression(seed=0)
     p5 = Problem.create(s5.graph, s5.data, 1e-3)
@@ -3491,8 +3596,10 @@ def phase_lane_faults(torch, dev) -> None:
                  "variant": {str(k): v for k, v in fits.items()},
                  "lams": [float(x) for x in PATH_LAMS],
                  "launches": f1_launches, "max_abs_dw_vs_dense_path": f1_dw,
-                 "bit_identical_to_one_lane_solves": {
-                     str(k): v for k, v in f1_identical.items()}},
+                 "max_abs_dw_vs_one_lane_solves": {
+                     str(k): v for k, v in f1_one_lane_dw.items()},
+                 "step_lanes_bit_identical_to_one_lane_streamed_launches":
+                     f1_step_identical},
           "f2": {"lanes": F2_LANES, "max_lanes": pd_step.MAX_LANES,
                  "solve_path_seconds": f2_s, "launches": f2_launches,
                  "bit_identical_to_one_lane_solves": {
@@ -3874,6 +3981,31 @@ def one_phase(keep: str):
         _build.entry = real
 
 
+def problem_args(torch, problem, lt, store, device, compact=True):
+    """One step's arguments of ``problem`` on layout ``lt`` for
+    ``kernels.ops.pd_step`` in storage ``store`` (rho 1.9), from a state
+    that moves (``moving_state``); ``compact``: pass the compact
+    incidence the checkout's kernel reads.  Returns (args, kw)."""
+    from repro_torch.api import backends
+
+    (params_s, pkeys, _, tau_s, _, sig2, src2, dst2, la2, _) = \
+        backends._fused_setup(problem.graph, problem.data, problem.lam,
+                              None, loss=problem.loss,
+                              reg=problem.regularizer, layout=lt,
+                              dtype=store)
+    w_store, u_store = moving_state(torch, lt, problem.num_features, la2,
+                                    device, store)
+    args = (w_store, u_store, lt.pad_node_store(lt.inc_edges),
+            lt.pad_node_store(lt.inc_signs), params_s, tau_s, src2, dst2,
+            sig2, la2)
+    kw = dict(loss=problem.loss, reg=problem.regularizer, pkeys=pkeys,
+              block_nodes=lt.block_nodes, block_edges=lt.block_edges,
+              kn=lt.kn, klo=lt.klo, khi=lt.khi, rho=1.9)
+    if compact:
+        kw["incidence"] = lt.compact
+    return args, kw
+
+
 def time_variants(torch, problems: dict, lt, compact: bool,
                   device) -> dict:
     """Each ``fused_pd_step`` variant of ``problems`` ({loss: Problem})
@@ -3882,29 +4014,14 @@ def time_variants(torch, problems: dict, lt, compact: bool,
     gather, prox, z, KM) or only its edge phase (D z, resolvent, KM)
     launched.  ``compact``: the checkout's kernel reads the compact
     incidence."""
-    from repro_torch.api import backends
     from repro_torch.kernels import ops
 
     rows = {}
     for loss, dtype in VARIANTS:
         if loss not in problems:
             continue
-        problem, store = problems[loss], getattr(torch, dtype)
-        (params_s, pkeys, _, tau_s, _, sig2, src2, dst2, la2, _) = \
-            backends._fused_setup(problem.graph, problem.data, problem.lam,
-                                  None, loss=problem.loss,
-                                  reg=problem.regularizer, layout=lt,
-                                  dtype=store)
-        w_store, u_store = moving_state(torch, lt, problem.num_features,
-                                        la2, device, store)
-        args = (w_store, u_store, lt.pad_node_store(lt.inc_edges),
-                lt.pad_node_store(lt.inc_signs), params_s, tau_s, src2,
-                dst2, sig2, la2)
-        kw = dict(loss=problem.loss, reg=problem.regularizer, pkeys=pkeys,
-                  block_nodes=lt.block_nodes, block_edges=lt.block_edges,
-                  kn=lt.kn, klo=lt.klo, khi=lt.khi, rho=1.9)
-        if compact:
-            kw["incidence"] = lt.compact
+        args, kw = problem_args(torch, problems[loss], lt,
+                                getattr(torch, dtype), device, compact)
 
         def step(_):
             return ops.pd_step(*args, **kw)
@@ -3914,7 +4031,7 @@ def time_variants(torch, problems: dict, lt, compact: bool,
             with one_phase(phase):
                 row[f"{phase}_phase_ms"] = cuda_ms(step, reps=20)
         rows[f"{loss}/{dtype}"] = row
-        del args, w_store, u_store, params_s
+        del args
         torch.cuda.empty_cache()
     return rows
 
@@ -3936,6 +4053,33 @@ def time_wide_variants(torch, graph, assign, lt, compact: bool,
     return rows
 
 
+def time_streamed_variants(torch, compact: bool, device) -> dict:
+    """``time_variants`` for the register tile's streamed logistic
+    variant, on the many-sample instance (``many_samples_instance``,
+    drawn from its seed on the card), float32 and bfloat16; and one
+    launch over six lanes (the step's state, lambda from 1x to 0.1x:
+    ``lane_args``) in float32."""
+    from repro_torch.api import SolverConfig, backends
+    from repro_torch.kernels import ops
+
+    problem, _ = many_samples_instance(torch, device)
+    require(backends._should_fuse(problem, SolverConfig(backend="pallas")),
+            "many-sample instance: no fusion")
+    lt = backends._graph_layout(problem.graph)
+    rows = {f"{k}/streamed": v for k, v in time_variants(
+        torch, {"logistic": problem}, lt, compact, device).items()}
+    args, kw = problem_args(torch, problem, lt, torch.float32, device,
+                            compact)
+    largs = lane_args(torch, args, len(PATH_LAMS))
+    rows["logistic/float32/streamed/lanes"] = {
+        "lanes": len(PATH_LAMS),
+        "ms_per_launch": cuda_ms(lambda _: ops.pd_step(*largs, **kw),
+                                 reps=10)}
+    del problem, args, largs
+    torch.cuda.empty_cache()
+    return rows
+
+
 def time_fused_solve(root: Path, path: Path, reps: int = 3,
                      device="cuda") -> dict:
     """In this process, with the ``repro_torch`` of checkout ``root``:
@@ -3944,10 +4088,12 @@ def time_fused_solve(root: Path, path: Path, reps: int = 3,
     fused squared float32 continuation solve (after one warm-up solve),
     and every ``fused_pd_step`` variant alone per step with its phase
     split (``time_variants``; the wide ones at n = WIDE_N:
-    ``time_wide_variants``).  Uses only what every slice of the port
-    since the third has (the wide rows: since the eighth), and passes the
-    compact incidence where the checkout's kernel reads it, so it times
-    the parent checkout as well."""
+    ``time_wide_variants``; the register tile's streamed logistic one on
+    the many-sample instance: ``time_streamed_variants``).  Uses only
+    what every slice of the port since the third has (the wide and
+    streamed rows: since the eighth), and passes the compact incidence
+    where the checkout's kernel reads it, so it times the parent
+    checkout as well."""
     import inspect
 
     import torch
@@ -3994,6 +4140,7 @@ def time_fused_solve(root: Path, path: Path, reps: int = 3,
     out["kernels"] = time_variants(torch, problems, lt, compact, device)
     out["wide_kernels"] = time_wide_variants(torch, graph, z["assign"], lt,
                                              compact, device)
+    out["streamed_kernels"] = time_streamed_variants(torch, compact, device)
     if compact:
         out["kernel_digests"] = kernel_digests(torch, device)
     return {**out, "iterations_per_s": rates}
@@ -4005,7 +4152,9 @@ def ab_main(argv: list) -> int:
     on the saved full-size instances: the fused squared float32 solve,
     and every ``fused_pd_step`` variant's ms per step with its node and
     edge phases (``time_variants``; the wide variant at n = WIDE_N on
-    the same graph, ``time_wide_variants``), and the register-tile kernel's
+    the same graph, ``time_wide_variants``; the streamed logistic one on
+    the many-sample instance in float32, bfloat16 and over six lanes,
+    ``time_streamed_variants``), and the register-tile kernel's
     outputs on ``kernel_vs_plain``'s inputs, which must be the same bits
     in every process (``kernel_digests``).  ``--time-solve ROOT NPZ``:
     one such process."""

@@ -12,6 +12,7 @@
 
 #include <climits>
 
+#include "pd_step_streamed.cuh"
 #include "pd_step_wide.cuh"
 
 namespace repro_pd {
@@ -44,9 +45,11 @@ void plan_bytes(int n, int ms, long long lanes, long long* staged,
   *staged = multi ? make_plan<kTileFeatures, LOSS, true>(a, p, true)
                   : make_plan<kTileFeatures, LOSS, false>(a, p, true);
   *streamed = LLONG_MAX;
-  if (LOSS == kLogistic)
-    *streamed = multi ? make_plan<kTileFeatures, LOSS, true>(a, p, false)
-                      : make_plan<kTileFeatures, LOSS, false>(a, p, false);
+  if (LOSS == kLogistic) {
+    StreamPlan sp;
+    *streamed = multi ? make_streamed_plan<kTileFeatures, true>(a, sp)
+                      : make_streamed_plan<kTileFeatures, false>(a, sp);
+  }
 }
 
 inline cudaError_t plan_for(int loss_kind, int n, int ms, long long lanes,
@@ -130,4 +133,30 @@ extern "C" int fused_pd_step_streaming(int loss_kind, int n,
       plan_for(loss_kind, n, num_samples, num_lanes, &staged, need);
   *limit = kSmemMax;
   return static_cast<int>(err);
+}
+
+// The samples of a node that the register-tile logistic streamed variant
+// stages in shared memory (*samples; the rest it reads from device memory
+// in each Newton step), at n <= 16 features, num_samples samples a node,
+// num_lanes lanes and storage type `storage` (Storage): its plan's own
+// count.  Returns a CUDA error code.
+extern "C" int fused_pd_step_streamed_samples(int n, int num_samples,
+                                              int num_lanes, int storage,
+                                              long long* samples) {
+  using namespace repro_pd;
+  if (n < 1 || n > kTileFeatures || num_samples < 0 || num_lanes < 1 ||
+      (storage != kF32 && storage != kBF16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  PdArgs a{};
+  a.n = n;
+  a.num_samples = num_samples;
+  a.num_lanes = num_lanes;
+  a.storage = storage;
+  StreamPlan sp;
+  if (num_lanes > 1)
+    make_streamed_plan<kTileFeatures, true>(a, sp);
+  else
+    make_streamed_plan<kTileFeatures, false>(a, sp);
+  *samples = sp.slab_samples;
+  return static_cast<int>(cudaSuccess);
 }

@@ -70,16 +70,20 @@ struct PdArgs {
   // kernel runs its iterations, launched or replayed from a CUDA graph (a
   // launch that finds the stop word clear writes and counts nothing)
   unsigned long long* executions;
-  // nonzero: read the prox parameters from device memory even where the
-  // staging plan fits (the streamed variant, which gives the staged
-  // variant's bits: for checking the two against each other)
+  // nonzero: run the streamed variant even where the staging plan fits
+  // (for checking the two against each other: the wide kernel's give the
+  // same bits, the register tile's agree to float32 rounding)
   int force_streamed;
+  // the register-tile streamed variant's scratch (pd_step_streamed.cuh),
+  // 1 + iters + num_nodes ints zeroed by the caller; null elsewhere
+  int* work;
 };
 
 // The variants, each loss's in its own translation unit so that
 // kernels/_build.py compiles them in parallel: the register-tile kernel
 // (n <= 16) with staged prox parameters per loss, the logistic loss's
-// streamed one (parameters read from device memory), and the wide kernel
+// streamed one (pd_step_streamed.cuh: a labeled node's samples split over
+// a block, staged once a launch step), and the wide kernel
 // (n > 16) staged or streamed (the logistic loss's in one unit per
 // storage type).
 cudaError_t pd_launch_squared(const PdArgs& a, cudaStream_t s);

@@ -107,15 +107,12 @@
 // (pd_step_wide.cuh: a node a warp).  The logistic Hessian is MAXN
 // (MAXN + 1) / 2 floats per thread, 136 at MAXN = 16.
 //
-// Streamed variant (STAGED false).  A node whose parameters pass the
-// staging plan (logistic nodes of more than ~14,500 samples at n = 2)
-// runs the same kernel with the prox reading its rows from device
-// memory: each value is widened by to_f32 as the staging widens it, the
-// arithmetic and the gather's lanes (make_plan) are the staged
-// variant's, so where both apply they give the same bits.  Its nodes'
-// samples are re-read on each Newton step, one thread a node as in the
-// staged kernel (a thread splitting a node's samples would change the
-// sums' order).
+// Streamed variant.  A logistic node whose samples pass the staging plan
+// (more than ~14,500 at n = 2) runs pd_step_streamed.cuh's kernel: this
+// kernel's node phase and edge phase, with a block a labeled node that
+// splits its samples over its threads.  Its sums run in another order, so
+// where both variants apply they agree to float32 rounding, not bit for
+// bit.
 //
 // What bounds it: bytes for the squared loss (a few flops per byte); the
 // lasso and logistic inner loops add num_inner passes of n^2 (lasso) or
@@ -392,9 +389,7 @@ __device__ __forceinline__ void gather_share(const PdArgs& a, const int* ids,
 }
 
 // PU_i(v) of the loss into wp (n live entries of MAXN, zero past n), from
-// the node's parameter rows sp[k]: staged float32 rows in shared memory,
-// or (the streamed variant) the storage rows in device memory, widened
-// by to_f32 as the staging widens them, so both give the same bits.
+// the node's parameter rows sp[k], staged as float32 in shared memory.
 template <int MAXN, int LOSS, typename PT>
 __device__ __forceinline__ void prox(const PdArgs& a,
                                      const PT* const* sp,
@@ -546,11 +541,11 @@ __device__ __forceinline__ void prox(const PdArgs& a,
 }
 
 // The node update of node i (thread t of its tile) after the tile's D^T u
-// is in shared memory: v = w - tau D^T u, the prox (parameters staged, or
-// read from device memory), z = 2 w+ - w and the KM step, written to the
-// carry or the outputs.  Returns the node's residual term (0 without
-// compute_residual).  Pointers are the lane's.
-template <int MAXN, int LOSS, typename T, bool STAGED>
+// is in shared memory: v = w - tau D^T u, the prox (parameters staged),
+// z = 2 w+ - w and the KM step, written to the carry or the outputs.
+// Returns the node's residual term (0 without compute_residual).
+// Pointers are the lane's.
+template <int MAXN, int LOSS, typename T>
 __device__ __forceinline__ float node_update(
     const PdArgs& a, const Plan& p, const float* smem, bool vec,
     bool in_carry, bool out_carry, bool rounded_residual, long long i,
@@ -565,20 +560,10 @@ __device__ __forceinline__ float node_update(
 #pragma unroll
   for (int k = 0; k < MAXN; ++k)
     v[k] = k < n ? w[k] - tt * smem[p.doffset + t * p.dstride + k] : 0.0f;
-  if constexpr (STAGED) {
-    const float* sp[6];
+  const float* sp[6];
 #pragma unroll
-    for (int k = 0; k < 6; ++k) sp[k] = smem + p.offset[k] + t * p.stride[k];
-    prox<MAXN, LOSS>(a, sp, v, wp);
-  } else {
-    const T* sp[6];
-#pragma unroll
-    for (int k = 0; k < 6; ++k)
-      sp[k] = k < p.num_params
-                  ? static_cast<const T*>(a.prm[k]) + i * p.elems[k]
-                  : nullptr;
-    prox<MAXN, LOSS>(a, sp, v, wp);
-  }
+  for (int k = 0; k < 6; ++k) sp[k] = smem + p.offset[k] + t * p.stride[k];
+  prox<MAXN, LOSS>(a, sp, v, wp);
 #pragma unroll
   for (int j = 0; j < MAXN; ++j) {
     zr[j] = 2.0f * wp[j] - w[j];
@@ -659,6 +644,15 @@ __device__ __forceinline__ void warp_max_into(float r, float* slot) {
     atomicMax(reinterpret_cast<int*>(slot), __float_as_int(r));
 }
 
+// The sum of x over the warp by a fixed xor-shuffle tree; every thread
+// gets the same bits (float addition commutes).
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
 // Resident blocks per SM the register budget must allow.  The squared
 // loss's node phase is latency-bound gathers, which occupancy hides (5
 // blocks: 48 registers at n <= 2); the lasso's and logistic's proxes
@@ -677,10 +671,7 @@ template <int MAXN, int LOSS, bool MULTI> constexpr int min_blocks() {
 // MULTI: a launch over num_lanes > 1 lanes.  The one-lane instantiation
 // (MULTI false) is the kernel of a single problem: its lane loops run once
 // with every lane offset 0, and its residual is one register max.
-// STAGED false: the streamed variant, for nodes whose parameters do not
-// fit the staging plan (logistic nodes of many samples): the same code,
-// the prox reading each node's parameter rows from device memory.
-template <int MAXN, int LOSS, typename T, bool MULTI, bool STAGED>
+template <int MAXN, int LOSS, typename T, bool MULTI>
 __global__ void __launch_bounds__(kThreads, min_blocks<MAXN, LOSS, MULTI>())
 fused_pd_step_kernel(PdArgs a, Plan p) {
   // the stop word: a stopped tol solve writes nothing (uniform: every
@@ -723,7 +714,7 @@ fused_pd_step_kernel(PdArgs a, Plan p) {
       const long long node0 = tile * p.tile;
       const long long left = a.num_nodes - node0;
       const int cnt = left < p.tile ? (int)left : p.tile;
-      stage_tile<T, STAGED>(a, p, smem, node0, cnt);
+      stage_tile<T>(a, p, smem, node0, cnt);
       const int* ids = a.in_ids;
       int ids_base = 0;
       if constexpr (MULTI) {
@@ -770,7 +761,7 @@ fused_pd_step_kernel(PdArgs a, Plan p) {
         const int t = threadIdx.x;
         float r = 0.0f;
         if (t < cnt)
-          r = node_update<MAXN, LOSS, T, STAGED>(
+          r = node_update<MAXN, LOSS, T>(
               a, p, smem, vec, in_carry, out_carry, rounded_residual,
               node0 + t, t, w_store + l * a.w_in_lane,
               a.w_carry + l * a.wc_lane, a.z + l * z_lane,
@@ -891,14 +882,14 @@ inline long long stage_layout(int loss, int n, int ms, Plan& p,
 // lanes come from the staging tile (the tile of the staged plan) and the
 // mean degree alone, never from the lane count or the variant, so each
 // lane of a launch over lanes sums in the order a one-lane launch does,
-// and the streamed variant in the order of the staged one.  Returns the
-// shared bytes; past kSmemMax the launch is refused.  The in-edge ids
-// only fill what is left of kSmemTarget, so whether a plan fits depends
-// on the loss, n, the samples a node and the lane count alone:
-// fused_pd_step_staging (pd_step.cu) asks this plan with no graph, for
-// the wrapper and the solver's fused gate.  `staged` false plans the
-// streamed variant: no parameter rows in shared memory, so its tiles
-// hold up to kMaxTile nodes.
+// and the streamed variant's gather (pd_step_streamed.cuh) in the order
+// of the staged one.  Returns the shared bytes; past kSmemMax the launch
+// is refused.  The in-edge ids only fill what is left of kSmemTarget, so
+// whether a plan fits depends on the loss, n, the samples a node and the
+// lane count alone: fused_pd_step_staging (pd_step.cu) asks this plan
+// with no graph, for the wrapper and the solver's fused gate.  `staged`
+// false plans no parameter rows in shared memory (the streamed variant's
+// node phase starts from it), so its tiles hold up to kMaxTile nodes.
 template <int MAXN, int LOSS, bool MULTI>
 long long make_plan(const PdArgs& a, Plan& p, bool staged = true) {
   long long node_bytes = stage_layout(LOSS, a.n, a.num_samples, p);
@@ -990,40 +981,38 @@ cudaError_t cooperative_launch(Kernel kernel, const PdArgs& args,
   return cudaGetLastError();
 }
 
-template <int MAXN, int LOSS, typename T, bool MULTI, bool STAGED>
+template <int MAXN, int LOSS, typename T, bool MULTI>
 cudaError_t launch(const PdArgs& args, cudaStream_t stream) {
   Plan plan;
-  const long long smem = make_plan<MAXN, LOSS, MULTI>(args, plan, STAGED);
+  const long long smem = make_plan<MAXN, LOSS, MULTI>(args, plan);
   if (smem > kSmemMax) return cudaErrorInvalidValue;
-  return cooperative_launch(fused_pd_step_kernel<MAXN, LOSS, T, MULTI, STAGED>,
+  return cooperative_launch(fused_pd_step_kernel<MAXN, LOSS, T, MULTI>,
                             args, plan, smem, stream);
 }
 
 // The register tile and storage type of one loss's launch.
-template <int LOSS, typename T, bool MULTI, bool STAGED>
+template <int LOSS, typename T, bool MULTI>
 cudaError_t launch_width(const PdArgs& a, cudaStream_t s) {
-  if (a.n <= 2) return launch<2, LOSS, T, MULTI, STAGED>(a, s);
-  if (a.n <= 4) return launch<4, LOSS, T, MULTI, STAGED>(a, s);
-  if (a.n <= 8) return launch<8, LOSS, T, MULTI, STAGED>(a, s);
-  if (a.n <= kTileFeatures) return launch<16, LOSS, T, MULTI, STAGED>(a, s);
+  if (a.n <= 2) return launch<2, LOSS, T, MULTI>(a, s);
+  if (a.n <= 4) return launch<4, LOSS, T, MULTI>(a, s);
+  if (a.n <= 8) return launch<8, LOSS, T, MULTI>(a, s);
+  if (a.n <= kTileFeatures) return launch<16, LOSS, T, MULTI>(a, s);
   return cudaErrorInvalidValue;
 }
 
 // One lane runs the single-problem kernel; more run the lane kernel.
-template <int LOSS, typename T, bool STAGED>
+template <int LOSS, typename T>
 cudaError_t launch_lanes(const PdArgs& a, cudaStream_t s) {
-  if (a.num_lanes == 1) return launch_width<LOSS, T, false, STAGED>(a, s);
-  return launch_width<LOSS, T, true, STAGED>(a, s);
+  if (a.num_lanes == 1) return launch_width<LOSS, T, false>(a, s);
+  return launch_width<LOSS, T, true>(a, s);
 }
 
-// The register-tile variants (n <= kTileFeatures) of one loss, staged or
-// streamed.
-template <int LOSS, bool STAGED = true>
+// The staged register-tile variants (n <= kTileFeatures) of one loss.
+template <int LOSS>
 cudaError_t dispatch(const PdArgs& a, cudaStream_t s) {
   if (a.n < 1 || a.num_lanes < 1) return cudaErrorInvalidValue;
-  if (a.storage == kF32) return launch_lanes<LOSS, float, STAGED>(a, s);
-  if (a.storage == kBF16)
-    return launch_lanes<LOSS, __nv_bfloat16, STAGED>(a, s);
+  if (a.storage == kF32) return launch_lanes<LOSS, float>(a, s);
+  if (a.storage == kBF16) return launch_lanes<LOSS, __nv_bfloat16>(a, s);
   return cudaErrorInvalidValue;
 }
 

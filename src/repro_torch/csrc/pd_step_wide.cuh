@@ -348,15 +348,6 @@ __device__ __forceinline__ void wide_gather(const PdArgs& a, int4 m,
   }
 }
 
-// The sum of x over the warp by a fixed xor-shuffle tree; every thread
-// gets the same bits (float addition commutes).
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
 constexpr int kSums = 4;         // a prox row's partial sums
 constexpr int kFactorSums = 16;  // a slice-row Cholesky entry's
 

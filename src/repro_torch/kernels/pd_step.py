@@ -19,12 +19,17 @@ gives each node to a warp, its prox a row a thread
 (``csrc/pd_step_wide.cuh``), for any n.  Each stages its tile's prox
 parameters in shared memory where the launch's plan fits a block
 (:func:`staging_bytes`: a node's parameters, and over lanes one slot a
-lane), and otherwise reads them from device memory (the streamed
-variant, :func:`streaming_bytes`; the same arithmetic, so the same
-bits).  A launch neither plan fits is refused, naming the limit: the
-wide logistic variant keeps a node's Cholesky factor (n (n + 1) / 2
-floats) in one warp's shared memory, which bounds n at 336 in one lane
-(:func:`kernel_takes`).
+lane), and otherwise runs its streamed variant (:func:`streaming_bytes`).
+The wide kernel's reads the parameters from device memory with the
+staged arithmetic, so the same bits.  The register tile's (the logistic
+loss's: ``csrc/pd_step_streamed.cuh``) skips the prox of unlabeled
+nodes and gives each labeled node a block, which stages its samples in
+shared memory once a step and splits them over its threads: its sums run
+in another order, so where both variants apply they agree to float32
+rounding, each held to the plain version.  A launch neither plan fits is
+refused, naming the limit: the wide logistic variant keeps a node's
+Cholesky factor (n (n + 1) / 2 floats) in one warp's shared memory,
+which bounds n at 336 in one lane (:func:`kernel_takes`).
 
 Build: ``kernels/_build.py`` compiles it with the port's other CUDA
 sources into one shared library on first use; nothing is built or loaded
@@ -93,7 +98,7 @@ class _PdArgs(ctypes.Structure):
         ("num_lanes", _I64), ("w_in_lane", _I64), ("u_in_lane", _I64),
         ("w_out_lane", _I64), ("u_out_lane", _I64), ("wc_lane", _I64),
         ("uc_lane", _I64), ("la_lane", _I64), ("executions", _P),
-        ("force_streamed", _I32),
+        ("force_streamed", _I32), ("work", _P),
     ]
 
 
@@ -153,6 +158,26 @@ def streaming_bytes(kind: int, n: int, num_samples: int,
         raise RuntimeError(f"fused_pd_step_streaming failed: CUDA error "
                            f"{err}")
     return need.value, limit.value
+
+
+@functools.lru_cache(maxsize=None)
+def streamed_slab_samples(n: int, num_samples: int, lanes: int = 1,
+                          dtype: torch.dtype = torch.float32) -> int:
+    """The samples of a node that the register-tile logistic streamed
+    variant stages in shared memory at ``n`` features (at most
+    ``TILE_FEATURES``), ``num_samples`` samples a node, ``lanes`` lanes
+    and storage ``dtype``; it reads the rest from device memory in each
+    Newton step (``csrc/pd_step.cu:fused_pd_step_streamed_samples``, the
+    launch's own plan)."""
+    count = ctypes.c_longlong()
+    err = _build.entry("fused_pd_step_streamed_samples",
+                       [_I32, _I32, _I32, _I32,
+                        ctypes.POINTER(ctypes.c_longlong)])(
+        n, num_samples, lanes, _STORAGE[dtype], ctypes.byref(count))
+    if err != 0:
+        raise RuntimeError(f"fused_pd_step_streamed_samples failed: CUDA "
+                           f"error {err}")
+    return count.value
 
 
 def plan_variant(kind: int, n: int, num_samples: int,
@@ -231,8 +256,9 @@ def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
     ``active`` (a one-element bool tensor, with ``out``) is the stop word
     of a tol solve: when it is False the launch writes nothing.
     ``streamed`` runs the streamed variant where the staged one would
-    run (the two give the same bits: for checking them against each
-    other); the register-tile squared and lasso kernels have none.
+    run, for checking the two against each other (the wide kernel's give
+    the same bits, the register tile's logistic ones agree to float32
+    rounding); the register-tile squared and lasso kernels have none.
     Launches on the current stream and does not synchronize."""
     from repro_torch.api.regularizers import SquaredTV, TotalVariation
 
@@ -348,6 +374,12 @@ def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
         carry = (torch.empty(lead + (nb * bv, n), dtype=f32, device=device),
                  torch.empty(lead + (nb * eb, n), dtype=f32, device=device))
 
+    # the register-tile streamed variant's scratch: the labeled nodes'
+    # count, each iteration's work counter and their list
+    work = None
+    if plan == "streamed" and n <= TILE_FEATURES:
+        work = torch.zeros(1 + iters + nb * bv, dtype=i32, device=device)
+
     def lane_stride(t):
         return t.stride(0) if lanes is not None else 0
     args = _PdArgs(
@@ -366,7 +398,7 @@ def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
         float(getattr(loss, "alpha", 0.0)), lanes or 1,
         *map(lane_stride, (w_store, u_store, w_new, u_new, *carry, la)),
         _build.execution_counter("fused_pd_step", device),
-        int(plan == "streamed"))
+        int(plan == "streamed"), None if work is None else work.data_ptr())
     stream = torch.cuda.current_stream(device).cuda_stream
     with _prof.annotate(_prof.FUSED_STEP), torch.cuda.device(device):
         err = _build.entry("fused_pd_step_launch", _ARGTYPES)(

@@ -26,8 +26,13 @@ gather); on every zoo layout one step is within 1e-5 of the plain
 version in float32 and one bf16 ulp in bfloat16; logistic nodes with
 thousands of samples (small tiles, and the opt-in to more than 48 KB of
 shared memory) hold to 1e-5; past the staging limit the kernel streams
-them (bit-identical to staging them where both apply) and the solver
-fuses them; a wide logistic node past n = 336 (the plan's limit) is refused.
+them (a labeled node a block, its samples staged up to the plan's count:
+within 1e-5 of the staged variant where both apply, of the plain version
+at n = 2-16, in both storage types, with masked samples, no or every node
+labeled and at the plan's staged count and one past it; six lanes give
+the bits of six one-lane launches; 100 iterations within 1e-4) and the
+solver fuses them; a wide logistic node past n = 336 (the plan's limit)
+is refused.
 """
 import dataclasses
 
@@ -271,10 +276,11 @@ def _many_samples(ms, device):
 @pytest.mark.cuda
 def test_wrapper_streams_parameters_past_shared_memory():
     """One node's logistic samples past a block's shared memory, by the
-    kernel's own count: the launch reads them from device memory (the
-    streamed variant), within 1e-5 of the plain version; at half as many
-    the staged variant runs, and the streamed one forced on those inputs
-    gives its bits."""
+    kernel's own count: the launch runs the streamed variant, within
+    1e-5 of the plain version; at half as many the staged variant runs,
+    and the streamed one forced on those inputs is within 1e-5 of it and
+    of the plain version (a labeled node's sums run in another order),
+    the same bits over two launches."""
     _need_card()
     ms = 15000
     need, limit = pd_step.staging_bytes(2, 2, ms)
@@ -293,9 +299,14 @@ def test_wrapper_streams_parameters_past_shared_memory():
     args, kw = _step(problem=_many_samples(ms // 2, "cuda"), device="cuda")
     staged = _kernel(args, kw)
     streamed = _kernel(args, dict(kw, streamed=True))
+    again = _kernel(args, dict(kw, streamed=True))
+    want = _plain(args, kw)
     torch.cuda.synchronize()
-    for a, b in zip(staged, streamed):
-        assert torch.equal(a, b)
+    for s, a, g, w in zip(streamed, again, staged, want):
+        assert torch.equal(s, a)
+        for other in (g, w):
+            np.testing.assert_allclose(s.cpu().numpy(), other.cpu().numpy(),
+                                       rtol=1e-5, atol=1e-5)
 
 
 def test_plain_version_ignores_the_compact_tables():
@@ -502,7 +513,8 @@ def _reference_many_samples(problem, ms):
     return JProblem.create(g, data, problem.lam, loss="logistic")
 
 
-@pytest.mark.parametrize("which", ["wide17", "samples15000"])
+@pytest.mark.parametrize("which", ["wide17", "samples15000",
+                                   "samples15000_f32"])
 def test_bf16_fuses_where_the_reference_fuses(which, cuda_gate,
                                               monkeypatch):
     """bf16 storage on the card where the reference's TPU fuses: a
@@ -512,11 +524,13 @@ def test_bf16_fuses_where_the_reference_fuses(which, cuda_gate,
     (the gate as on the card, the plan counts stubbed), and on the CPU
     its result is held to the reference's bf16 fused solve within the
     reference's bf16 gates (final objective 0.15 relative, ``w`` 0.5 of
-    its scale)."""
+    its scale).  Beside them the float32 route of the streamed case,
+    held to the reference's float32 fused solve within 1e-4."""
     from repro.api import Solver as JSolver
     from repro.api import SolverConfig as JConfig
 
     conf = dict(num_iters=60, rho=1.9, metric_every=20)
+    dtype = "float32" if which.endswith("_f32") else "bfloat16"
     if which == "wide17":
         _plan_stubs(monkeypatch)
         problem, jproblem = _wide_problem(17)
@@ -524,11 +538,15 @@ def test_bf16_fuses_where_the_reference_fuses(which, cuda_gate,
         _plan_stubs(monkeypatch, staged=False)
         problem = _many_samples(15000, "cpu")
         jproblem = _reference_many_samples(problem, 15000)
-    got = Solver(SolverConfig(backend="pallas", dtype="bfloat16",
+    got = Solver(SolverConfig(backend="pallas", dtype=dtype,
                               **conf)).run(problem)
     assert cuda_gate == [None]
-    want = JSolver(JConfig(backend="pallas", fused=True, dtype="bfloat16",
+    want = JSolver(JConfig(backend="pallas", fused=True, dtype=dtype,
                            **conf)).run(jproblem)
+    if dtype == "float32":
+        np.testing.assert_allclose(got.w.numpy(), np.asarray(want.w),
+                                   rtol=0, atol=1e-4)
+        return
     obj, ref_obj = got.objective.numpy(), np.asarray(want.objective)
     assert np.isfinite(obj).all()
     assert abs(obj[-1] - ref_obj[-1]) / abs(ref_obj[-1]) <= BF16_OBJ_REL
@@ -639,9 +657,11 @@ def test_cuda_solver_runs_many_samples_fused():
 def test_cuda_path_past_the_lane_plan_runs_fused():
     """Logistic nodes of 14,523 samples fit the kernel's staging plan as
     one lane and not as six: ``solve_path`` over six lambdas runs the
-    fused lanes with the parameters streamed, each lane bit-identical to
-    a one-lane (staged) fused solve from the path's warm start, within
-    1e-4 of the dense path."""
+    fused lanes with the parameters streamed, each lane within 1e-4 of a
+    one-lane (staged) fused solve from the path's warm start (a labeled
+    node's sums run in another order) and of the dense path.  On one
+    step's inputs the six-lane streamed launch gives the bits of six
+    one-lane streamed launches."""
     _need_card()
     from repro_torch.api import solve_path
     from repro_torch.engine import default_warm_lam
@@ -668,10 +688,170 @@ def test_cuda_path_past_the_lane_plan_runs_fused():
         u0 = problem.regularizer.project_dual(warm.u, problem.graph, lam)
         one = backends._solve_fused(problem.with_lam(lam), final,
                                     w0=warm.w, u0=u0)
-        assert torch.equal(one.w, got.w[k])
+        np.testing.assert_allclose(got.w[k].cpu().numpy(),
+                                   one.w.cpu().numpy(), rtol=0, atol=1e-4)
     want = solve_path(problem, LANE_WINDOW_LAMS, cfg.replace(backend="dense"))
     np.testing.assert_allclose(got.w.cpu().numpy(), want.w.cpu().numpy(),
                                rtol=0, atol=1e-4)
+    args, kw = _step(problem=problem, device="cuda")
+    largs = _lane_args(args, len(LANE_WINDOW_LAMS))
+    lanes = fused_pd_step.lane_launches[key]
+    path = _kernel(largs, kw)
+    assert fused_pd_step.lane_launches[key] == lanes + 1
+    ones = [_kernel(_one_lane(largs, k), kw, streamed=True)
+            for k in range(len(LANE_WINDOW_LAMS))]
+    torch.cuda.synchronize()
+    for k, one in enumerate(ones):
+        for a, b in zip(path, one):
+            assert torch.equal(a[k], b)
+
+
+def _lane_args(args, lanes):
+    """``_step``'s arguments as ``lanes`` lanes of a lambda path: one w
+    for every lane, lambda (la and the duals with it) from 1x to 0.1x."""
+    scale = np.geomspace(1.0, 0.1, lanes)
+    out = list(args)
+    out[0] = torch.stack([args[0]] * lanes)
+    out[1] = torch.stack([args[1] * float(c) for c in scale])
+    out[9] = torch.stack([args[9] * float(c) for c in scale])
+    return out
+
+
+def _one_lane(args, k):
+    out = list(args)
+    out[0], out[1], out[9] = args[0][k], args[1][k], args[9][k]
+    return out
+
+
+def _streamed_problem(n, ms, labeled="half", masked=False, device="cuda"):
+    """A logistic problem with ``n`` features and ``ms`` samples a node on
+    a 40-node SBM, Bernoulli labels; every other node labeled (or none,
+    or all); ``masked``: every third node's second half of samples
+    masked out."""
+    from repro_torch.core.losses import NodeData
+
+    rng = np.random.default_rng(1000 * n + ms)
+    g, assign = sbm_graph(rng, (20, 20), 0.3, 0.05, device=device)
+    x = rng.standard_normal((40, ms, n)).astype(np.float32)
+    w = rng.standard_normal((2, n))[assign % 2]
+    mask = np.ones((40, ms), np.float32)
+    if masked:
+        mask[::3, ms // 2:] = 0.0
+    y = (rng.random((40, ms)) < 1.0 / (1.0 + np.exp(
+        -np.einsum("vmn,vn->vm", x, w)))).astype(np.float32) * mask
+    lab = {"half": np.arange(40) % 2 == 0, "none": np.zeros(40, bool),
+           "all": np.ones(40, bool)}[labeled].astype(np.float32)
+    data = NodeData(*(torch.from_numpy(a).to(device)
+                      for a in (x, y, mask, lab)))
+    return Problem.create(g, data, 1e-2, loss="logistic", device=device)
+
+
+def _assert_near_plain(got, want, dtype, tol=1e-5):
+    """float32: within ``tol``; bfloat16: one bf16 ulp at each output's
+    scale (both round the same f32 values to nearest even)."""
+    for g, w in zip(got[:2], want[:2]):
+        g, w = g.float().cpu().numpy(), w.float().cpu().numpy()
+        lim = tol if dtype == torch.float32 else _bf16_ulp(
+            float(np.abs(w).max()))
+        assert np.abs(g - w).max() <= lim
+
+
+# (n, samples or "slab" / "slab+1": the last sample the streamed plan
+# stages and one past it, storage, labeled nodes, masked samples)
+STREAMED_CASES = [
+    (2, 100, "float32", "half", False),
+    (2, 15001, "float32", "half", False),
+    (2, 15001, "bfloat16", "half", False),
+    (2, "slab", "float32", "half", False),
+    (2, "slab+1", "float32", "half", False),
+    (2, "slab", "bfloat16", "half", False),
+    (2, "slab+1", "bfloat16", "half", False),
+    (3, 300, "float32", "half", False),
+    (4, 300, "float32", "half", False),
+    (8, 300, "float32", "half", False),
+    (16, 300, "float32", "half", False),
+    (3, 300, "bfloat16", "half", False),
+    (8, 300, "bfloat16", "half", False),
+    (16, 300, "bfloat16", "half", False),
+    (2, 1000, "float32", "half", True),
+    (4, 1000, "bfloat16", "half", True),
+    (2, 1000, "float32", "none", False),
+    (2, 1000, "bfloat16", "none", False),
+    (2, 1000, "float32", "all", False),
+    (2, 1000, "bfloat16", "all", False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,ms,dtype,labeled,masked", STREAMED_CASES)
+def test_cuda_streamed_kernel_matches_plain_version(n, ms, dtype, labeled,
+                                                    masked):
+    """The register tile's streamed logistic variant (a labeled node a
+    block, its samples split over the block and staged in shared memory
+    up to the plan's count, the rest read from device memory; unlabeled
+    nodes skip the Newton steps) forced on each case: within 1e-5 of the
+    plain version (bf16 one ulp), the same bits over two launches."""
+    _need_card()
+    dt = getattr(torch, dtype)
+    if isinstance(ms, str):
+        cap = pd_step.streamed_slab_samples(n, 1 << 20, 1, dt)
+        ms = cap + (ms == "slab+1")
+        assert pd_step.streamed_slab_samples(n, ms, 1, dt) == cap
+    args, kw = _step(problem=_streamed_problem(n, ms, labeled, masked),
+                     dtype=dt, device="cuda")
+    key = pd_step.variant_key("logistic", dt, n, False)
+    before = fused_pd_step.variant_launches[key]
+    got = _kernel(args, kw, streamed=True)
+    again = _kernel(args, kw, streamed=True)
+    want = _plain(args, kw)
+    torch.cuda.synchronize()
+    assert fused_pd_step.variant_launches[key] == before + 2
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    _assert_near_plain(got, want, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_streamed_lanes_are_one_lane_launches(dtype):
+    """Six lanes of the streamed variant in one launch: each lane gives
+    the bits of a one-lane streamed launch on its inputs, and the launch
+    is within 1e-5 of the plain version over the six lanes (bf16 one
+    ulp)."""
+    _need_card()
+    dt = getattr(torch, dtype)
+    args, kw = _step(problem=_streamed_problem(2, 15001), dtype=dt,
+                     device="cuda")
+    largs = _lane_args(args, 6)
+    got = _kernel(largs, kw, streamed=True)
+    ones = [_kernel(_one_lane(largs, k), kw, streamed=True)
+            for k in range(6)]
+    want = _plain(largs, kw)
+    torch.cuda.synchronize()
+    for k, one in enumerate(ones):
+        for a, b in zip(got, one):
+            assert torch.equal(a[k], b)
+    _assert_near_plain(got, want, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_streamed_kernel_100_iterations(dtype):
+    """One launch of 100 iterations of the streamed variant on the
+    whole-graph block (a float32 carry) against 100 plain steps: within
+    1e-4 (bf16 one ulp at the state's scale beyond it)."""
+    _need_card()
+    dt = getattr(torch, dtype)
+    args, kw = _step(problem=_streamed_problem(2, 3000), dtype=dt,
+                     device="cuda", block_nodes=None)
+    got = _kernel(args, kw, streamed=True, iters=100)
+    want = _plain(args, kw, iters=100)
+    torch.cuda.synchronize()
+    for g, w in zip(got[:2], want[:2]):
+        g, w = g.float().cpu().numpy(), w.float().cpu().numpy()
+        lim = 1e-4 + (0.0 if dt == torch.float32 else _bf16_ulp(
+            float(np.abs(w).max())))
+        assert np.abs(g - w).max() <= lim
 
 
 @pytest.mark.cuda
