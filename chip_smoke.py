@@ -59,6 +59,16 @@ plan, 2,000 nodes) and ``many_samples_full_size`` (logistic nodes of
 16,384 samples on 20,000 nodes, streamed, in float32 and bfloat16 and
 over a 6-lambda path, against the dense backend; the kernel alone at
 the instance's 10% labeled nodes and with every node labeled).
+Then the sharded backends (``sharded``: the halo-exchange engine step;
+``sharded_fused``: ``fused_pd_step`` on each shard's own layout with a
+dual halo refresh between shards): ``sharded_s5`` (§5 and the zoo on a
+one-rank mesh against the dense backend; the kernel against its plain
+version on each of four shards' layouts), ``sharded_full_size`` (a
+250,000-node clustered graph through both in an NCCL world of one
+rank) and
+``sharded_ranks`` (worlds of 2 and 4 processes on the one card over
+gloo, the exchange through the host, on a 100,000-node graph; each
+rank's kernel runs counted by the kernel).
 Where a tol engine replays a captured block, the kernels it ran are
 counted on the card by the kernels themselves (``device_executions``):
 the wrappers' launch counters count only the launches made outside a
@@ -176,6 +186,10 @@ KERNELS["tv_prox[lanes]"] = dict(KERNELS["tv_prox"], name="tv_prox[lanes]")
 for _kind in ("shared P", "per-lane P"):
     _name = f"batched_affine[lanes,{_kind}]"
     KERNELS[_name] = dict(KERNELS["batched_affine"], name=_name)
+# fused_pd_step launched inside each shard of sharded_fused (the squared
+# float32 variant on a shard's own layout)
+KERNELS["fused_pd_step[sharded]"] = dict(KERNELS["fused_pd_step"],
+                                         name="fused_pd_step[sharded]")
 # benchmarks/scaling.py:PATH_LAMS: the lambda path of the path phases
 PATH_LAMS = np.geomspace(1e-1, 1e-3, 6).astype(np.float32)
 PATH_TOL = 1e-6            # a lane against its one-lane fused solve
@@ -195,6 +209,12 @@ MANY_NODES = 20_000
 MANY_ITERS = 20            # their solves' depth (the dense one: ~0.6 s a step)
 ROUTE_ITERS = 5            # fused against unfused route: a solve's depth
 # the §5 shapes of the port's kernel tests (tests/test_torch_kernels.py)
+SHARDED_NODES = 250_000    # sharded_full_size: its graph (see the phase)
+SHARDED_ITERS = 1000       # and each sharded solve's depth
+RANK_NODES = 100_000       # sharded_ranks: the graph every rank solves
+RANK_ITERS = 300
+RANK_WORLDS = (2, 4)       # gloo worlds of processes on the one card
+RANK_TOL = 2e-4            # sharded vs dense in a world (the reference's)
 TV_SHAPES = [(7, 2), (512, 2), (1000, 16), (33, 5), (1, 1), (65, 3)]
 AFFINE_SHAPES = [(300, 2), (64, 8), (1000, 32), (13, 3), (1, 1), (65, 3)]
 
@@ -3913,6 +3933,407 @@ def phase_federated_full_size(torch, big, w_true) -> None:
             "1M partial run did not move the objective down")
 
 
+# ---------------------------------------------------------------------------
+# The sharded backends: halo exchange over a mesh of ranks, and the fused
+# kernel inside each shard (core/distributed.py, core/mesh.py)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def timed_run(torch):
+    """Time the sharded ``Solver.run`` inside the block, telemetry on:
+    yields a dict that holds, after the block, ``seconds`` (the block,
+    to the card's finish), ``plan_seconds`` (the run's ``sharded_plan``
+    span: its ``shard_problem*`` call) and ``solve_seconds`` (the rest:
+    the loop, the final gathers and the final metrics).  Telemetry adds
+    the engine's ``record_function`` ranges to the loop."""
+    from repro_torch import obs
+
+    obs.reset()
+    obs.enable()
+    rec = {}
+    t0 = time.perf_counter()
+    try:
+        yield rec
+        torch.cuda.synchronize()
+        rec["seconds"] = time.perf_counter() - t0
+        (plan,) = [h for h in obs.REGISTRY.find("repro_span_seconds")
+                   if dict(h.labels)["span"] == "sharded_plan"]
+        rec["plan_seconds"] = plan.sum
+        rec["solve_seconds"] = rec["seconds"] - plan.sum
+    finally:
+        obs.disable()
+        obs.reset()
+
+
+def shard_step_args(torch, hp, reg, lam: float, rho: float, seed: int):
+    """One fused step's ``kernels.ops.pd_step`` arguments on the layout of
+    the sharded problem ``hp`` (a ``HierarchicalProblem``), as
+    ``solve_nlasso_hier`` launches it, from a state that moves: w at the
+    solve's scale on the layout rows (zero past them), each owned dual
+    drawn uniformly from its box.  Returns (args, kw)."""
+    h = hp.hier
+    dev = hp.tau.device
+    n = hp.num_features
+    nv, ne, lo = h.nodes_pad, h.edges_pad, h.klo * h.block_edges
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    la = lam * hp.bound_unit
+    w_store = torch.zeros((h.w_store_rows, n), device=dev)
+    w_store[:nv] = 2.0 * torch.randn((nv, n), generator=gen, device=dev)
+    u_store = torch.zeros((h.u_store_rows, n), device=dev)
+    u_store[lo:lo + ne] = la * (2.0 * torch.rand(
+        (ne, n), generator=gen, device=dev) - 1.0)
+    pkeys = tuple(sorted(hp.prox_params))
+    args = (w_store, u_store, hp.inc_edges, hp.inc_signs,
+            tuple(hp.prox_params[k].contiguous() for k in pkeys), hp.tau,
+            hp.src, hp.dst, torch.full((ne, 1), 0.5, device=dev), la)
+    kw = dict(loss=hp.loss, reg=reg, pkeys=pkeys,
+              block_nodes=h.block_nodes, block_edges=h.block_edges,
+              kn=h.kn, klo=h.klo, khi=h.khi, rho=rho,
+              incidence=hp.incidence)
+    return args, kw
+
+
+def shard_kernel_check(torch, hp, lam: float, rho: float, seed: int
+                       ) -> dict:
+    """``fused_pd_step`` against its plain version on one shard's layout,
+    one step from a moving state; the layout's extents beside."""
+    from repro_torch.api.regularizers import TotalVariation
+    from repro_torch.kernels import ops
+
+    args, kw = shard_step_args(torch, hp, TotalVariation(), lam, rho, seed)
+    k_out = ops.pd_step(*args, **kw)
+    p_out = plain_step(*args, **kw)
+    h = hp.hier
+    nv = h.nodes_pad
+    return {"shard": hp.shard, "max_abs_err": max(
+                max_diff(k_out[0], p_out[0]), max_diff(k_out[1], p_out[1])),
+            "layout_nodes": int((h.node_map[hp.shard * nv:
+                                            (hp.shard + 1) * nv] >= 0).sum()),
+            "owned_nodes": int(hp.node_owned.sum()),
+            "num_blocks": h.num_blocks, "block_nodes": h.block_nodes,
+            "block_edges": h.block_edges, "kn": h.kn, "klo": h.klo,
+            "khi": h.khi, "replicated_slots": int(hp.recv_slots.numel())}
+
+
+SHARDED_COLUMNS = (("sharded_dense", dict(backend="sharded", comm="dense")),
+                   ("sharded_boundary", dict(backend="sharded",
+                                             comm="boundary")),
+                   ("sharded_fused", dict(backend="sharded_fused")))
+
+
+def phase_sharded_s5(torch, dev) -> float:
+    """The sharded backends on a one-rank mesh on the card: the §5
+    instance (lambda 1e-3) and the eight scenarios at smoke size, 200
+    iterations at rho 1.9, through ``sharded`` (dense and boundary
+    exchange) and ``sharded_fused``, each against the dense backend on the
+    card (``w`` within SOLVE_TOL, final objective within rtol SOLVE_TOL);
+    ``sharded_fused`` must run ``fused_pd_step`` once an iteration on the
+    card, counted by the kernel, ``sharded`` never (it runs no kernel of
+    its own).  Then, on the §5 graph cut into 4 shards, the kernel
+    against its plain version on each shard's layout (padding rows, the
+    across-shard extents), whose largest error it returns."""
+    from repro_torch.api import Problem, Solver, SolverConfig
+    from repro_torch.core.distributed import shard_problem_fused
+    from repro_torch.core.mesh import make_host_mesh
+    from repro_torch.data.synthetic import make_sbm_regression
+    from repro_torch.scenarios import SCENARIOS, get_scenario
+
+    t0 = time.perf_counter()
+    mesh = make_host_mesh(1, 1, device=dev)
+    base = SolverConfig(num_iters=200, rho=1.9)
+    s5 = make_sbm_regression(seed=0, device=dev)
+    runs = [("paper_s5", Problem.create(s5.graph, s5.data, 1e-3,
+                                        device=dev))]
+    runs += [(name, get_scenario(name).build(seed=0, smoke=True,
+                                             device=dev).problem)
+             for name in sorted(SCENARIOS)]
+    rows = {}
+    for name, problem in runs:
+        dense = Solver(base).run(problem)
+        row = {}
+        for column, kw in SHARDED_COLUMNS:
+            counts = {}
+            t1 = time.perf_counter()
+            with device_executions(torch, counts):
+                res = Solver(base.replace(mesh=mesh, **kw)).run(problem)
+            dw = max_diff(res.w, dense.w)
+            obj_rel = float((res.objective[-1] - dense.objective[-1]).abs()
+                            / dense.objective[-1].abs())
+            row[column] = {"seconds": time.perf_counter() - t1,
+                           "max_abs_dw_vs_dense": dw,
+                           "objective_rel_vs_dense": obj_rel,
+                           "fused_pd_step_runs": counts["fused_pd_step"],
+                           "halo_bytes_per_iter": res.diagnostics[
+                               "halo_exchange_bytes_per_iter"]}
+            want_runs = base.num_iters if kw["backend"] == "sharded_fused" \
+                else 0
+            require(dw <= SOLVE_TOL and obj_rel <= SOLVE_TOL
+                    and counts["fused_pd_step"] == want_runs
+                    and bool(torch.isfinite(res.w).all()),
+                    f"sharded_s5 {name} {column}: {row[column]}")
+        rows[name] = row
+    shards = [shard_kernel_check(torch, shard_problem_fused(
+        s5.graph, s5.data, 4, shard=s), 1e-3, 1.9, seed=s)
+        for s in range(4)]
+    for r in shards:
+        require(r["max_abs_err"] <= STEP_TOL,
+                f"sharded_s5: the kernel on shard {r['shard']}'s layout: {r}")
+    emit({"phase": "sharded_s5", "seconds": time.perf_counter() - t0,
+          "num_iters": base.num_iters, "rho": base.rho, "tol": SOLVE_TOL,
+          "runs": rows, "shard_layouts_4": shards})
+    return max(r["max_abs_err"] for r in shards)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_sharded_full_size(torch, dev) -> dict:
+    """The SHARDED_NODES clustered graph (``make_clustered``: squared
+    loss, n = 2, lambda 1e-3; the 1M graph's hierarchical plan takes
+    55-65 s, which the script's time limit cannot hold beside the other
+    phases) through ``sharded_fused`` and ``sharded`` (dense exchange)
+    in an NCCL world of one rank, SHARDED_ITERS iterations each at rho
+    1.9, each against the dense backend's solve of that budget (``w``
+    within SOLVE_TOL, final objective within rtol SOLVE_TOL).  One shard
+    holds the whole graph, so the partitioner is "block" (the greedy
+    "cluster" one would assign the same nodes after a Python heap walk
+    over all of them).  ``sharded_fused`` runs the backend's two layers,
+    as the reference's ``benchmarks/scaling.py`` does:
+    ``shard_problem_fused`` with the backend's window hint, then
+    ``solve_nlasso_hier``, so that the one plan also serves the kernel's
+    check on its layout; ``sharded`` runs ``Solver.run``.  Per run:
+    planning seconds, the solve's seconds and iterations/s (the final
+    gathers included), halo bytes per iteration; for ``sharded_fused``
+    the kernel's launches and device runs, and the kernel alone on the
+    shard layout (ms a call, its plain version's, the bound).  Returns
+    the kernels' line entry."""
+    import torch.distributed as dist
+
+    from repro_torch.api import Problem, Solver, SolverConfig
+    from repro_torch.api.backends import _fused_window_cap
+    from repro_torch.core.distributed import (halo_exchange_bytes_per_iter,
+                                              shard_problem_fused,
+                                              solve_nlasso_hier)
+    from repro_torch.core.mesh import make_host_mesh
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    graph, data, _, _ = make_clustered(SHARDED_NODES, seed=0, device=dev)
+    prob = Problem.create(graph, data, 1e-3, device=dev)
+    del graph, data
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1, device=dev, group=dist.group.WORLD)
+        base = SolverConfig(num_iters=SHARDED_ITERS, rho=1.9,
+                            metric_every=SHARDED_ITERS)
+        t1 = time.perf_counter()
+        dense = Solver(base).run(prob)
+        torch.cuda.synchronize()
+        dense_s = time.perf_counter() - t1
+        n = prob.num_features
+        hint = (n, prob.loss.prox_param_floats(prob.data.x.shape[-2], n),
+                4, _fused_window_cap())
+
+        def check(column, w, objective, record):
+            dw = max_diff(w, dense.w)
+            obj_rel = float((objective - dense.objective[-1]).abs()
+                            / dense.objective[-1].abs())
+            record.update(max_abs_dw_vs_dense=dw,
+                          objective_rel_vs_dense=obj_rel,
+                          iterations_per_s=SHARDED_ITERS
+                          / record["solve_seconds"])
+            want_runs = SHARDED_ITERS if column == "sharded_fused" else 0
+            require(dw <= SOLVE_TOL and obj_rel <= SOLVE_TOL
+                    and record["fused_pd_step_runs"] == want_runs
+                    and bool(torch.isfinite(w).all()),
+                    f"sharded_full_size {column}: {record}")
+            return record
+
+        runs, counts = {}, {}
+        t1 = time.perf_counter()
+        hp = shard_problem_fused(prob.graph, prob.data, 1, partitioner="block",
+                                 loss=prob.loss, window_hint=hint)
+        torch.cuda.synchronize()
+        plan_s = time.perf_counter() - t1
+        reset_launches()
+        t1 = time.perf_counter()
+        with device_executions(torch, counts):
+            w, _, _, comm = solve_nlasso_hier(
+                hp, mesh, float(prob.lam), SHARDED_ITERS, rho=1.9,
+                reg=prob.regularizer)
+            torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t1
+        launches = read_launches()["fused_pd_step"]
+        runs["sharded_fused"] = check("sharded_fused", w, prob.objective(w), {
+            "seconds": plan_s + solve_s, "plan_seconds": plan_s,
+            "solve_seconds": solve_s, "comm": comm,
+            "halo_bytes_per_iter": halo_exchange_bytes_per_iter(hp, comm, n),
+            "fused_pd_step_launches": launches,
+            "fused_pd_step_runs": counts["fused_pd_step"]})
+        del w
+        reset_launches()
+        with timed_run(torch) as rec, device_executions(torch, counts):
+            res = Solver(base.replace(mesh=mesh, partitioner="block",
+                                      backend="sharded", comm="dense")
+                         ).run(prob)
+        runs["sharded_dense"] = check("sharded_dense", res.w,
+                                      res.objective[-1], dict(
+            rec, halo_bytes_per_iter=res.diagnostics[
+                "halo_exchange_bytes_per_iter"],
+            fused_pd_step_launches=read_launches()["fused_pd_step"],
+            fused_pd_step_runs=counts["fused_pd_step"],
+            dual_infeasibility=float(
+                res.diagnostics["dual_infeasibility"])))
+        del res
+        # the kernel alone on the shard's layout
+        args, kw = shard_step_args(torch, hp, prob.regularizer, prob.lam, 1.9,
+                                   seed=1)
+        ms = cuda_ms(lambda _: ops.pd_step(*args, **kw), reps=20)
+        plain_ms = cuda_ms(lambda _: plain_step(*args, **kw), reps=3)
+        k_out = ops.pd_step(*args, **kw)
+        p_out = plain_step(*args, **kw)
+        err = max(max_diff(k_out[0], p_out[0]), max_diff(k_out[1], p_out[1]))
+        cost = step_cost(args, kw, prob.loss)
+        h = hp.hier
+        kernel = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                  "layout": {"num_blocks": h.num_blocks,
+                             "block_nodes": h.block_nodes,
+                             "block_edges": h.block_edges, "kn": h.kn,
+                             "klo": h.klo, "khi": h.khi},
+                  **{k: cost[k] for k in ("bound_ms", "bound_by",
+                                          "bytes_read", "bytes_written")}}
+        require(err <= STEP_TOL, f"sharded_full_size kernel vs plain {err}")
+        emit({"phase": "sharded_full_size",
+              "seconds": time.perf_counter() - t0, "transport": "nccl",
+              "ranks": 1, "via_host": mesh.via_host,
+              "nodes": prob.num_nodes, "edges": prob.graph.num_edges,
+              "iterations": SHARDED_ITERS, "dense_seconds": dense_s,
+              "dense_iterations_per_s": SHARDED_ITERS / dense_s,
+              "runs": runs, "kernel_on_shard_layout": kernel})
+    finally:
+        dist.destroy_process_group()
+    return dict(KERNELS["fused_pd_step[sharded]"], launches=launches,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=cost["bound_ms"], bound_by=cost["bound_by"],
+                library_ms=None)
+
+
+def sharded_rank(rank: int, world: int, out: str) -> None:
+    """One rank of a ``sharded_ranks`` world (a spawned process on the
+    one card): join the gloo world, solve the RANK_NODES graph through
+    every sharded column (``sharded_fused`` twice), and write each
+    ``w`` and a record of the run into ``out``."""
+    import torch
+    import torch.distributed as dist
+
+    if str(ROOT / "src") not in sys.path:
+        sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.api import Problem, Solver, SolverConfig
+    from repro_torch.core.mesh import make_host_mesh
+
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{out}/store",
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_host_mesh(world, 1, device=dev)
+        graph, data, _, _ = make_clustered(RANK_NODES, seed=0, device=dev)
+        problem = Problem.create(graph, data, 1e-3, device=dev)
+        base = SolverConfig(num_iters=RANK_ITERS, rho=1.9, mesh=mesh)
+        arrays, runs = {}, {}
+        for column, kw in SHARDED_COLUMNS + (
+                ("sharded_fused_rerun", dict(backend="sharded_fused")),):
+            counts = {}
+            with timed_run(torch) as rec, device_executions(torch, counts):
+                res = Solver(base.replace(**kw)).run(problem)
+            arrays[column] = res.w.cpu().numpy()
+            runs[column] = dict(
+                rec, iterations_per_s=RANK_ITERS / rec["solve_seconds"],
+                halo_bytes_per_iter=res.diagnostics[
+                    "halo_exchange_bytes_per_iter"],
+                fused_pd_step_runs=counts["fused_pd_step"])
+        np.savez(Path(out) / f"rank{rank}.npz", **arrays)
+        (Path(out) / f"rank{rank}.json").write_text(json.dumps({
+            "transport": mesh.transport, "via_host": mesh.via_host,
+            "seconds": time.perf_counter() - t0, "runs": runs}))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharded_ranks(torch, dev) -> None:
+    """Worlds of RANK_WORLDS processes on the one card over gloo (NCCL
+    refuses two ranks on one GPU), each rank loading the library
+    ``phase_build`` built: the RANK_NODES clustered graph (squared,
+    n = 2, lambda 1e-3), RANK_ITERS iterations at rho 1.9, through
+    ``sharded`` (dense and boundary exchange) and ``sharded_fused``
+    (``comm="auto"``, twice).  Every rank's ``w`` against the dense
+    backend's on the card (``sharded`` within RANK_TOL, ``sharded_fused``
+    within SOLVE_TOL and bit-identical between its two runs), the same on
+    every rank; each rank's ``fused_pd_step`` runs counted by the kernel
+    (one an iteration in ``sharded_fused``, none in ``sharded``).  Gloo
+    takes host tensors: the exchange goes through the host."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.api import Problem, Solver, SolverConfig
+
+    t0 = time.perf_counter()
+    graph, data, _, _ = make_clustered(RANK_NODES, seed=0, device=dev)
+    problem = Problem.create(graph, data, 1e-3, device=dev)
+    want = Solver(SolverConfig(num_iters=RANK_ITERS, rho=1.9,
+                               metric_every=RANK_ITERS)).run(problem).w
+    want = want.cpu().numpy()
+    del graph, data, problem
+    worlds = {}
+    bounds = {"sharded_dense": RANK_TOL, "sharded_boundary": RANK_TOL,
+              "sharded_fused": SOLVE_TOL, "sharded_fused_rerun": SOLVE_TOL}
+    for size in RANK_WORLDS:
+        (ROOT / "build").mkdir(exist_ok=True)
+        out = Path(tempfile.mkdtemp(prefix="ranks", dir=ROOT / "build"))
+        try:
+            t1 = time.perf_counter()
+            mp.spawn(sharded_rank, args=(size, str(out)), nprocs=size,
+                     join=True)
+            spawn_s = time.perf_counter() - t1
+            ranks = [(dict(np.load(out / f"rank{r}.npz")),
+                      json.loads((out / f"rank{r}.json").read_text()))
+                     for r in range(size)]
+        finally:
+            shutil.rmtree(out, ignore_errors=True)
+        errs = {c: max(float(np.abs(a[c] - want).max()) for a, _ in ranks)
+                for c in bounds}
+        same = all(np.array_equal(a[c], ranks[0][0][c])
+                   for a, _ in ranks for c in bounds)
+        rerun = all(np.array_equal(a["sharded_fused"],
+                                   a["sharded_fused_rerun"])
+                    for a, _ in ranks)
+        worlds[size] = {"seconds": spawn_s, "max_abs_dw_vs_dense": errs,
+                        "same_w_on_every_rank": same,
+                        "sharded_fused_rerun_bit_identical": rerun,
+                        "ranks": [rec for _, rec in ranks]}
+        require(all(errs[c] <= bounds[c] for c in bounds) and same and rerun,
+                f"sharded_ranks world of {size}: {worlds[size]}")
+        for r, (_, rec) in enumerate(ranks):
+            runs = rec["runs"]
+            require(rec["transport"] == "gloo" and rec["via_host"]
+                    and all(runs[c]["fused_pd_step_runs"]
+                            == (RANK_ITERS if c.startswith("sharded_fused")
+                                else 0) for c in runs),
+                    f"sharded_ranks world of {size}, rank {r}: {rec}")
+    emit({"phase": "sharded_ranks", "seconds": time.perf_counter() - t0,
+          "nodes": RANK_NODES, "iterations": RANK_ITERS,
+          "transport": "gloo", "exchange_through_host": True,
+          "tol": bounds, "worlds": worlds})
+
+
 DATA_FIELDS = ("x", "y", "sample_mask", "labeled_mask")
 # the A/B instance's problems: loss -> (lambda, loss options)
 AB_PROBLEMS = {"squared": (1e-3, {}), "logistic": (1e-3, {}),
@@ -4260,6 +4681,9 @@ def main() -> int:
     kernels += phase_path_full_size(torch, dev, big, w_true, others)
     kernels += phase_path_tol_full_size(torch, dev, big)
     kernels += phase_many_full_size(torch, dev, graph, assign)
+    errs["fused_pd_step[sharded]"] = phase_sharded_s5(torch, dev)
+    kernels.append(phase_sharded_full_size(torch, dev))
+    phase_sharded_ranks(torch, dev)
     del big, others, data, w_true
     torch.cuda.empty_cache()
     kernels += phase_wide_streamed(torch, dev)

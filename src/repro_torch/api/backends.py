@@ -1,7 +1,7 @@
 """Execution backends for the port's solver — thin drivers over the engine.
 
-The ``dense`` and ``pallas`` backends run the canonical primal-dual iteration
-(:func:`repro_torch.engine.step.pd_step`, paper eqs. 14-15) and return
+Every backend runs the canonical primal-dual iteration
+(:func:`repro_torch.engine.step.pd_step`, paper eqs. 14-15) and returns
 one :class:`~repro_torch.api.problem.SolveResult`:
 
   * ``dense``  — a Python loop over the dense executor (any device; the
@@ -33,11 +33,13 @@ unfused engines through ``_solve_dense_path``, the fused one through
 kernels take the lane axis in one launch each (the fused kernel in
 groups of at most ``kernels.pd_step.MAX_LANES`` lanes).
 
-A third backend, ``federated``, runs the round-based message-passing
-runtime (``repro_torch.federated``) with ``SolverConfig.federated``'s
-policies.  The reference's ``sharded`` and ``sharded_fused`` backends
-are not in the port yet: each raises ``NotImplementedError`` naming the
-``ROADMAP.md`` item that brings it.
+``federated`` runs the round-based message-passing runtime
+(``repro_torch.federated``) with ``SolverConfig.federated``'s policies.
+``sharded`` and ``sharded_fused`` partition the graph over the ranks of
+a mesh (``core.mesh``; SPMD: every rank calls ``Solver.run`` with the
+whole problem and gets the same result): the halo-exchange engine step,
+and the fused kernel on each shard's own edge-blocked layout with a
+dual halo refresh between shards (``core.distributed``).
 """
 from __future__ import annotations
 
@@ -49,11 +51,13 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.api.losses import Loss, SquaredLoss
 from repro_torch.api.problem import Problem, SolveResult, SolverConfig
 from repro_torch.api.regularizers import TotalVariation
 from repro_torch.core.graph import (batched_incidence_apply,
-                                    lane_signal_mse, plan_edge_blocks)
+                                    graph_signal_mse, lane_signal_mse,
+                                    plan_edge_blocks)
 from repro_torch.core.losses import NodeData
 from repro_torch.core.partition import gather_padded
 from repro_torch.engine import (BatchedDenseExecutor, DenseExecutor,
@@ -63,12 +67,6 @@ from repro_torch.engine import pd_step as engine_pd_step
 from repro_torch.kernels import ops, pd_step as pd_kernel
 
 BACKENDS: dict[str, Callable] = {}
-
-# registered in the reference, not yet in the port: name -> ROADMAP item
-_PENDING_BACKENDS = {
-    "sharded": "ROADMAP.md Open items §1 item 9",
-    "sharded_fused": "ROADMAP.md Open items §1 item 10",
-}
 
 
 def register_backend(name: str):
@@ -80,9 +78,6 @@ def register_backend(name: str):
 
 
 def get_backend(name: str) -> Callable:
-    if name in _PENDING_BACKENDS:
-        raise NotImplementedError(
-            f"backend {name!r} is not ported yet: {_PENDING_BACKENDS[name]}")
     try:
         return BACKENDS[name]
     except KeyError:
@@ -1030,3 +1025,167 @@ def solve_federated(problem: Problem, config: SolverConfig, *, w0=None,
         compute_diagnostics=config.compute_diagnostics)
     return run_federated(problem, fed, w0=w0, u0=u0,
                          w_true=w_true).to_solve_result()
+
+
+# ---------------------------------------------------------------------------
+# Sharded backends (message passing over a mesh of ranks, core/distributed.py)
+# ---------------------------------------------------------------------------
+
+def _shard_layout(problem: Problem, config: SolverConfig):
+    """(mesh, num_shards, shard) of a sharded solve: ``config.mesh`` or a
+    one-rank mesh on the problem's device, the shard count (by default
+    the mesh axis's size), and the shard this rank runs (its index along
+    the axis)."""
+    from repro_torch.core.mesh import make_host_mesh
+
+    mesh = (config.mesh if config.mesh is not None
+            else make_host_mesh(1, 1, device=problem.device))
+    num_shards = (config.num_shards if config.num_shards is not None
+                  else mesh.shape[config.mesh_axis])
+    return mesh, num_shards, (mesh.rank if config.mesh_axis == "data"
+                              else 0)
+
+
+def _final_metrics(problem: Problem, w, w_true):
+    """Objective and MSE at the final iterate only (traces of length 1)."""
+    obj = problem.objective(w)[None]
+    if w_true is None:
+        return obj, None
+    return obj, graph_signal_mse(w, w_true,
+                                 1.0 - problem.data.labeled_mask)[None]
+
+
+@register_backend("sharded")
+def solve_sharded(problem: Problem, config: SolverConfig, *, w0=None,
+                  u0=None, w_true=None) -> SolveResult:
+    """Partition the graph over ``config.mesh`` and run the halo-exchange
+    solver, one shard a rank.  Objective/MSE are evaluated once at the
+    final iterate (the sharded loop carries prox parameters, not raw
+    node data), so the traces have length 1.
+    """
+    _storage_dtype(config, fused=False)
+    # local import: core.distributed delegates its shim back here
+    from repro_torch.core.distributed import (halo_exchange_bytes_per_iter,
+                                              resolve_comm, shard_problem,
+                                              solve_nlasso_sharded)
+    from repro_torch.core.partition import (permute_edge_array_device,
+                                            permute_node_array_device,
+                                            unpermute_edge_array_device,
+                                            unpermute_node_array_device)
+
+    if not problem.regularizer.fusable:
+        raise NotImplementedError(
+            "sharded backend needs an edge-elementwise (fusable) "
+            "regularizer resolvent")
+    mesh, num_shards, shard = _shard_layout(problem, config)
+    with obs.span("sharded_plan", backend="sharded"):
+        sp = shard_problem(problem.graph, problem.data, num_shards,
+                           partitioner=config.partitioner,
+                           loss=problem.loss, shard=shard)
+    comm = resolve_comm(
+        config.comm,
+        sp.plan.cut_edges / max(problem.graph.num_edges, 1))
+    # device-side layout permutes: warm-started continuation keeps the
+    # carry on the device
+    if w0 is not None:
+        w0 = permute_node_array_device(sp.plan, torch.as_tensor(
+            w0, dtype=torch.float32, device=problem.device))
+    if u0 is not None:
+        u0 = permute_edge_array_device(sp.plan, torch.as_tensor(
+            u0, dtype=torch.float32, device=problem.device))
+    w_pad, u_pad, iterations = solve_nlasso_sharded(
+        sp, mesh, float(problem.lam), config.num_iters,
+        axis=config.mesh_axis, rho=config.rho, comm=comm, w0=w0, u0=u0,
+        return_u=True, tol=config.tol, tol_every=config.metric_every,
+        reg=problem.regularizer)
+    w = unpermute_node_array_device(sp.plan, w_pad, problem.num_nodes)
+    u = unpermute_edge_array_device(sp.plan, u_pad,
+                                    problem.graph.num_edges)
+    obj, mse = _final_metrics(problem, w, w_true)
+    diag = _with_iterations(_diagnostics(problem, w, u, config), config,
+                            iterations)
+    diag = _with_halo_traffic(
+        diag, halo_exchange_bytes_per_iter(sp, comm, problem.num_features),
+        iterations, comm, "sharded")
+    return SolveResult(w=w, u=u, objective=obj, mse=mse, lam=problem.lam,
+                       diagnostics=diag)
+
+
+def _with_halo_traffic(diag, bytes_per_iter: int, iterations: int,
+                       comm: str, backend: str):
+    """Surface inter-shard exchange volume per solve (and mirror it onto
+    the obs registry, CommLedger.export_obs-style)."""
+    total = int(bytes_per_iter) * int(iterations)
+    diag = dict(diag or {})
+    diag["halo_exchange_bytes_per_iter"] = float(bytes_per_iter)
+    diag["halo_exchange_bytes"] = float(total)
+    if obs.enabled():
+        obs.counter(
+            "halo_exchange_bytes_total",
+            help="inter-shard dual/primal halo exchange payload bytes",
+            comm=comm, backend=backend).inc(total)
+        obs.counter(
+            "halo_exchange_iterations_total",
+            help="iterations contributing halo exchanges",
+            comm=comm, backend=backend).inc(int(iterations))
+    return diag
+
+
+@register_backend("sharded_fused")
+def solve_sharded_fused(problem: Problem, config: SolverConfig, *, w0=None,
+                        u0=None, w_true=None) -> SolveResult:
+    """Two-level scale-out: hierarchical partition (cluster cuts between
+    shards, RCM + edge blocks within), each rank stepping the fused
+    edge-blocked kernel on its shard's layout with a per-iteration dual
+    halo refresh between shards.  On the card the kernel runs every
+    step, and a loss it cannot take is refused (never the plain step
+    there).  ``comm="auto"`` (the default) picks the boundary exchange
+    when the inter-shard cut fraction is < 25%.  Objective/MSE are
+    evaluated once at the final iterate, like ``sharded``.
+    """
+    _storage_dtype(config, fused=False)
+    from repro_torch.core.distributed import (halo_exchange_bytes_per_iter,
+                                              shard_problem_fused,
+                                              solve_nlasso_hier)
+
+    if not problem.regularizer.fusable:
+        raise NotImplementedError(
+            "sharded_fused needs an edge-elementwise (fusable) "
+            "regularizer resolvent")
+    num_samples = problem.data.x.shape[-2]
+    if problem.device.type == "cuda" and not (
+            problem.loss.kernel_safe and pd_kernel.kernel_takes(
+                problem.loss, problem.num_features, num_samples)):
+        raise NotImplementedError(
+            f"loss {type(problem.loss).__name__} at n = "
+            f"{problem.num_features} cannot run inside the fused_pd_step "
+            "kernel; run sharded_fused on the CPU or use sharded")
+    if config.clip_fn is not None or config.affine_fn is not None:
+        raise NotImplementedError(
+            "custom kernel hooks target the unfused engine")
+
+    mesh, num_shards, shard = _shard_layout(problem, config)
+    try:
+        param_floats = problem.loss.prox_param_floats(
+            num_samples, problem.num_features)
+    except NotImplementedError:
+        param_floats = 0
+    hint = (problem.num_features, param_floats, 4, _fused_window_cap())
+    with obs.span("sharded_plan", backend="sharded_fused"):
+        sp = shard_problem_fused(problem.graph, problem.data, num_shards,
+                                 partitioner=config.partitioner,
+                                 loss=problem.loss, window_hint=hint,
+                                 shard=shard)
+    w, u, iterations, comm = solve_nlasso_hier(
+        sp, mesh, float(problem.lam), config.num_iters,
+        axis=config.mesh_axis, rho=config.rho, comm=config.comm, w0=w0,
+        u0=u0, tol=config.tol, tol_every=config.metric_every,
+        reg=problem.regularizer)
+    obj, mse = _final_metrics(problem, w, w_true)
+    diag = _with_iterations(_diagnostics(problem, w, u, config), config,
+                            iterations)
+    diag = _with_halo_traffic(
+        diag, halo_exchange_bytes_per_iter(sp, comm, problem.num_features),
+        iterations, comm, "sharded_fused")
+    return SolveResult(w=w, u=u, objective=obj, mse=mse, lam=problem.lam,
+                       diagnostics=diag)

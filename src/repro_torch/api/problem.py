@@ -67,8 +67,8 @@ class Problem:
 
 @dataclasses.dataclass(frozen=True)
 class SolverConfig:
-    """How to run Algorithm 1 (the reference's fields that this slice
-    runs; see ``repro.api.problem.SolverConfig`` for the full set).
+    """How to run Algorithm 1 (the reference's fields, with its
+    defaults).
 
     Core iteration:
       num_iters:    primal-dual iterations (ignored when continuation=True).
@@ -92,7 +92,10 @@ class SolverConfig:
     Backend dispatch:
       backend:     "dense" (Python loop over the dense executor),
                    "pallas" (the port's kernels; the name is the
-                   reference's) or "federated" (the round-based
+                   reference's), "sharded" (halo-exchange message passing
+                   over a mesh of ranks), "sharded_fused" (the fused
+                   kernel in each shard, a dual halo refresh between
+                   shards) or "federated" (the round-based
                    message-passing runtime, ``repro_torch.federated``).
       fused:       pallas only — run the fused primal-dual kernel over
                    the edge-blocked layout instead of the dense engine
@@ -103,6 +106,15 @@ class SolverConfig:
                    overrides the default either way.  Every registered
                    loss fuses; a loss without ``prox_setup`` or a set
                    kernel hook falls back to the unfused path.
+      mesh / mesh_axis / num_shards / partitioner / comm: sharded-backend
+                   layout knobs.  ``mesh`` is a ``core.mesh.Mesh``
+                   (``make_host_mesh``); None is a one-rank mesh on the
+                   problem's device.  ``num_shards`` defaults to the
+                   mesh's ``mesh_axis`` size and must equal it (one shard
+                   a rank).  ``partitioner`` is "cluster" or "block";
+                   ``comm`` is "auto" (boundary exchange when the
+                   inter-shard cut fraction is < 25%, dense otherwise),
+                   "dense", or "boundary".
       clip_fn / affine_fn: custom kernel hooks for the dual clip and the
                    affine primal update (dense/pallas backends; the
                    pallas backend fills unset hooks with the port's
@@ -137,6 +149,11 @@ class SolverConfig:
     # backend dispatch
     backend: str = "dense"
     fused: bool | None = None
+    mesh: Any = dataclasses.field(default=None, compare=False, repr=False)
+    mesh_axis: str = "data"
+    num_shards: int | None = None
+    partitioner: str = "cluster"
+    comm: str = "auto"
     federated: Any = None
     # custom kernel hooks
     clip_fn: Any = dataclasses.field(default=None, compare=False,

@@ -1,2 +1,2 @@
-"""Graph, partition planner and node data of the port (counterpart of
-``repro.core``)."""
+"""Graph, partition planners, mesh, sharded solvers and node data of the
+port (counterpart of ``repro.core``)."""

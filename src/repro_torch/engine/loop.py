@@ -12,7 +12,7 @@
     here) is the one device->host transfer such a solve makes,
   * **host-side chunks** — :func:`run_chunked` drives a solve as a loop
     over chunks (the federated runtime's checkpoint schedule and its
-    per-chunk tol test),
+    per-chunk tol test; the sharded backends' tol test),
   * **iteration caps and warm starts** — the ``REPRO_SOLVER_MAX_ITERS``
     env cap and the continuation warm-lambda default used by
     ``Solver.run``.

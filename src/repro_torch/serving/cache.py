@@ -54,11 +54,11 @@ class PlanKey:
     ``loss`` / ``regularizer`` are the template reprs (dataclass reprs
     are stable and capture parameters like a lasso alpha); ``shape_sig``
     is (V, E, m_max, n, max_degree) — the tuple that determines every
-    array shape of the solve.  ``shard_sig`` is the reference's sharding
-    facet for its distributed backends; the port serves the
-    single-program engines only (``sharded`` is ROADMAP §1 item 9), so
-    its own keys carry ``()``, and a loaded key keeps what it was saved
-    with.
+    array shape of the solve.  ``shard_sig`` is the sharding facet of the
+    distributed backends — (num_shards, mesh_axis, partitioner, comm) —
+    empty for single-program backends, so two sessions solving the same
+    structure under different meshes or exchange modes never share a
+    plan.
     """
 
     structure_hash: str
@@ -72,6 +72,14 @@ class PlanKey:
     def for_problem(cls, problem: Problem,
                     config: SolverConfig) -> "PlanKey":
         g, d = problem.graph, problem.data
+        shard_sig: tuple = ()
+        if config.backend in ("sharded", "sharded_fused"):
+            mesh = config.mesh
+            num_shards = (config.num_shards if config.num_shards is not None
+                          else (mesh.shape[config.mesh_axis]
+                                if mesh is not None else 1))
+            shard_sig = (int(num_shards), str(config.mesh_axis),
+                         str(config.partitioner), str(config.comm))
         return cls(
             structure_hash=g.structure_hash(),
             loss=repr(problem.loss),
@@ -79,6 +87,7 @@ class PlanKey:
             backend=config.backend,
             shape_sig=(g.num_nodes, g.num_edges, int(d.x.shape[1]),
                        int(d.x.shape[2]), g.max_degree),
+            shard_sig=shard_sig,
         )
 
     @property

@@ -122,7 +122,9 @@ def test_solve_many_warm_starts_and_traces():
 def test_solve_many_rejects_bad_batches():
     with pytest.raises(ValueError, match=r"problems\[1\]"):
         solve_many([_chain_problem(v=24), _chain_problem(v=32)], CFG)
-    with pytest.raises(NotImplementedError, match="backend"):
+    with pytest.raises(NotImplementedError,
+                       match="backend must be 'dense' or 'pallas', got "
+                             "'sharded'"):
         solve_many([_chain_problem()], CFG.replace(backend="sharded"))
     with pytest.raises(NotImplementedError, match="continuation"):
         solve_many([_chain_problem()], CFG.replace(continuation=True))

@@ -7,7 +7,11 @@
     of moving to the CPU (``solve_path`` and ``solve_many`` run on their
     problems' device, which defaults to the card; a plan file loads onto
     the card unless the caller names a device),
-  * what the port leaves out raises ``NotImplementedError``.
+  * every backend of the reference is registered and runs on the CPU —
+    the sharded ones on a one-rank mesh, while a mesh of many ranks
+    without a process group raises — and what the port leaves out, as
+    the reference does (lambda paths and batches on the sharded
+    backends), raises ``NotImplementedError``.
 """
 import ast
 from pathlib import Path
@@ -61,7 +65,7 @@ def test_serving_modules_are_checked():
 @pytest.mark.parametrize("entry", ["make_sbm_regression", "build_graph",
                                    "problem_create", "state_from_arrays",
                                    "solve_path", "solve_many",
-                                   "load_plans"])
+                                   "load_plans", "make_host_mesh"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry,
                                                            tmp_path):
     if entry == "load_plans":
@@ -84,6 +88,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry,
                 solve_many([Problem.create(ds.graph, ds.data, 1e-3)])
             else:
                 Problem.create(ds.graph, ds.data, 1e-3)
+        elif entry == "make_host_mesh":
+            from repro_torch.core.mesh import make_host_mesh
+            make_host_mesh()
         else:
             interop.state_from_arrays(np.zeros((2, 2)), np.zeros((1, 2)))
 
@@ -117,6 +124,56 @@ def test_unported_solver_options_raise(cpu_problem, overrides, backend):
 
 
 def test_unported_paths_raise(cpu_problem):
-    for name in ("sharded", "sharded_fused"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_backend(name)
+    """What the reference does not run either stays refused, naming the
+    backends it runs: a lambda path or a batch on a sharded backend
+    (``tests/test_serving_batch.py:100``), and bf16 storage there."""
+    for backend in ("sharded", "sharded_fused"):
+        cfg = SolverConfig(num_iters=10, backend=backend)
+        with pytest.raises(NotImplementedError,
+                           match=f"'dense' or 'pallas', got '{backend}'"):
+            solve_path(cpu_problem, [1e-3, 1e-2], cfg)
+        with pytest.raises(NotImplementedError,
+                           match=f"'dense' or 'pallas', got '{backend}'"):
+            solve_many([cpu_problem], cfg)
+        with pytest.raises(NotImplementedError, match="bfloat16"):
+            Solver(cfg.replace(dtype="bfloat16")).run(cpu_problem)
+
+
+def test_every_reference_backend_is_registered():
+    from repro.api.backends import BACKENDS as J_BACKENDS
+    from repro_torch.api.backends import BACKENDS
+    assert sorted(BACKENDS) == sorted(J_BACKENDS)
+    for name in BACKENDS:
+        assert get_backend(name) is BACKENDS[name]
+
+
+@pytest.mark.parametrize("backend", ["sharded", "sharded_fused"])
+def test_sharded_backends_run_on_the_cpu(cpu_problem, backend):
+    """Registered, and run on the CPU on a one-rank mesh (the default
+    mesh is one rank on the problem's device)."""
+    from repro_torch.core.mesh import make_host_mesh
+    dense = Solver(SolverConfig(num_iters=20)).run(cpu_problem)
+    for mesh in (None, make_host_mesh(1, 1, device="cpu")):
+        result = Solver(SolverConfig(num_iters=20, backend=backend,
+                                     mesh=mesh)).run(cpu_problem)
+        assert result.w.device.type == "cpu"
+        assert result.objective.shape == (1,)
+        assert float((result.w - dense.w).abs().max()) <= 1e-4
+
+
+def test_mesh_of_many_ranks_needs_a_process_group():
+    """A mesh of more than one rank needs an initialized process group
+    of that size; the port's mesh spans one axis of ranks."""
+    import torch.distributed as dist
+
+    from repro_torch.core.mesh import make_host_mesh
+    assert not (dist.is_available() and dist.is_initialized())
+    with pytest.raises(RuntimeError, match="process group of 4 ranks"):
+        make_host_mesh(4, 1, device="cpu")
+    with pytest.raises(NotImplementedError, match="model must be 1"):
+        make_host_mesh(1, 2, device="cpu")
+    mesh = make_host_mesh(1, 1, device="cpu")
+    assert (mesh.shape, mesh.rank, mesh.group, mesh.transport) == (
+        {"data": 1, "model": 1}, 0, None, None)
+    t = torch.arange(6.0).reshape(3, 2)
+    assert mesh.all_gather(t) is t and mesh.all_reduce(t, "max") is t

@@ -577,7 +577,9 @@ def test_path_refusals():
     problem, _ = _port(1e-3)
     with pytest.raises(ValueError, match="non-empty 1-D"):
         solve_path(problem, [])
-    with pytest.raises(NotImplementedError, match="backend"):
+    with pytest.raises(NotImplementedError,
+                       match="backend must be 'dense' or 'pallas', got "
+                             "'sharded'"):
         solve_path(problem, PATH_LAMS, SolverConfig(backend="sharded"))
     with pytest.raises(NotImplementedError, match="bfloat16"):
         solve_path(problem, PATH_LAMS,

@@ -543,6 +543,34 @@ def test_plan_cache_compiled_sigs_bounded():
     assert cache.mark_compiled(("sig", 0))
 
 
+@pytest.mark.parametrize("overrides", [
+    dict(backend="sharded"),
+    dict(backend="sharded", mesh=True, comm="boundary"),
+    dict(backend="sharded_fused", num_shards=4, partitioner="block"),
+    dict(backend="sharded_fused", mesh=True, mesh_axis="model"),
+    dict(backend="dense", num_shards=4)])
+def test_plan_key_shard_sig_matches_reference(overrides):
+    """The port's key for a sharded config is the reference's, field for
+    field: the sharding facet (num_shards, mesh_axis, partitioner, comm)
+    for the two sharded backends, () for the others."""
+    from repro.core.mesh import make_host_mesh as j_mesh
+    from repro.serving import PlanKey as JPlanKey
+    from repro_torch.core.mesh import make_host_mesh
+
+    kw = dict(overrides)
+    with_mesh = kw.pop("mesh", False)
+    cfg = SolverConfig(num_iters=10, **kw)
+    jcfg = _j_config(cfg)
+    if with_mesh:
+        cfg = cfg.replace(mesh=make_host_mesh(1, 1, device="cpu"))
+        jcfg = jcfg.replace(mesh=j_mesh(1, 1))
+    key = PlanKey.for_problem(_chain_problem(), cfg)
+    jkey = JPlanKey.for_problem(_j_chain_problem(), jcfg)
+    assert dataclasses.asdict(key) == dataclasses.asdict(jkey)
+    assert key.shard_sig == (() if cfg.backend == "dense" else (
+        cfg.num_shards or 1, cfg.mesh_axis, cfg.partitioner, cfg.comm))
+
+
 # ---------------------------------------------------------------------------
 # solve_path ledger exactness
 # ---------------------------------------------------------------------------
