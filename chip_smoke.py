@@ -69,6 +69,27 @@ rank) and
 ``sharded_ranks`` (worlds of 2 and 4 processes on the one card over
 gloo, the exchange through the host, on a 100,000-node graph; each
 rank's kernel runs counted by the kernel).
+Last, the legacy surface, the examples and the experiment harness:
+``legacy_s5`` (the front-ends of ``repro_torch.core.nlasso`` on §5, each
+against the ``Solver`` run it stands for, bit for bit; ``nlasso`` with
+``affine_fn=ops.batched_affine, clip_fn=ops.tv_prox`` against the
+unfused pallas solve, both kernels launched a step; ``solve_nlasso``,
+``pd_step``, the certificate with ``sym_pinv``; FedTV at 32 clients and
+d_model 4096 against the CPU; the Table-1 baselines on the card's data),
+``legacy_full_size`` (``nlasso`` with the kernel hooks on the full-size
+graph against the unfused solve, each kernel on its state against its
+plain version: ``tv_prox[legacy]`` and ``batched_affine[legacy]`` in the
+kernels' line; the certificate) and ``examples`` (three processes on the
+card, started before ``legacy_s5`` and run beside it:
+``examples/quickstart_torch.py`` at the full §5 size,
+``examples/scenario_tour_torch.py`` at smoke size and
+``experiments/run_torch.py --smoke`` through the dense and pallas
+backends, its pallas rows the fused kernel's lanes).  The other four
+examples (``federated_round_trip_torch.py``, ``observability_tour_torch.py``,
+``serving_stream_torch.py``, ``distributed_nlasso_torch.py``) drive
+paths that ``federated_s5``, ``obs_full_size``, ``serving_s5`` and
+``sharded_ranks`` already drive on the card; they run in the tier-1
+tests on the CPU.
 Where a tol engine replays a captured block, the kernels it ran are
 counted on the card by the kernels themselves (``device_executions``):
 the wrappers' launch counters count only the launches made outside a
@@ -190,6 +211,11 @@ for _kind in ("shared P", "per-lane P"):
 # float32 variant on a shard's own layout)
 KERNELS["fused_pd_step[sharded]"] = dict(KERNELS["fused_pd_step"],
                                          name="fused_pd_step[sharded]")
+# the unfused kernels launched by the legacy front-end nlasso (its
+# affine_fn / clip_fn hooks) at full size
+for _name in ("tv_prox", "batched_affine"):
+    KERNELS[f"{_name}[legacy]"] = dict(KERNELS[_name],
+                                       name=f"{_name}[legacy]")
 # benchmarks/scaling.py:PATH_LAMS: the lambda path of the path phases
 PATH_LAMS = np.geomspace(1e-1, 1e-3, 6).astype(np.float32)
 PATH_TOL = 1e-6            # a lane against its one-lane fused solve
@@ -4334,6 +4360,470 @@ def phase_sharded_ranks(torch, dev) -> None:
           "tol": bounds, "worlds": worlds})
 
 
+# ---------------------------------------------------------------------------
+# The legacy surface, the examples and the experiment harness
+# ---------------------------------------------------------------------------
+
+FEDTV_CLIENTS = 32         # legacy_s5's FedTV block: clients
+FEDTV_WIDTH = 4096         # ... and d_model (a transformer's hidden width)
+FEDTV_STEPS = 200
+FEDTV_TOL = 1e-5           # FedTV steps on the card vs the CPU
+LEGACY_ITERS = 200         # legacy_full_size: nlasso's depth at 1M
+EXAMPLE_TIMEOUT = 300      # seconds an example's process may take
+
+
+def launch_counts() -> dict:
+    """The four kernels' launches since the last ``reset_launches``."""
+    return {k: v for k, v in read_launches().items()
+            if k in ("fused_pd_step", "tv_prox", "batched_affine",
+                     "sym_pinv")}
+
+
+def legacy_equal(torch, got, want) -> bool:
+    """``NLassoResult`` ``got`` the bits of ``SolveResult`` ``want``:
+    w, u, the objective trace and the MSE trace (or both None)."""
+    if (got.mse is None) != (want.mse is None):
+        return False
+    return all(torch.equal(a, b) for a, b in (
+        (got.w, want.w), (got.u, want.u), (got.objective, want.objective),
+        *(((got.mse, want.mse),) if want.mse is not None else ())))
+
+
+def phase_legacy_s5(torch, dev) -> None:
+    """The legacy surface (``repro_torch.core.nlasso``, ``core.losses``'s
+    ``make_prox``, ``core.fedtv``, ``core.baselines``) on the card (while
+    the ``examples`` phase's processes run: its seconds are shared), each
+    front-end against the ``Solver`` run it stands for, on the §5
+    instance: ``nlasso`` (500 iterations, rho 1.9) bit for bit; with the
+    port's kernels as its hooks against the unfused pallas solve, both
+    kernels launched once a step; the lasso and logistic losses;
+    ``nlasso_continuation`` at its defaults (3000 + 1000); the deprecated
+    ``solve_nlasso`` with a caller prox (warns, within PATH_TOL); 100
+    ``pd_step`` calls against 100 ``pd_iteration`` calls; the certificate
+    (``sym_pinv`` launched); FedTV at C = FEDTV_CLIENTS, d_model =
+    FEDTV_WIDTH against the same steps on the CPU; the Table-1 baselines
+    on the card's data against the CPU's, bit for bit."""
+    import warnings
+
+    from repro_torch.api import (Problem, Solver, SolverConfig,
+                                 certificate, pd_iteration)
+    from repro_torch.api.regularizers import TotalVariation
+    from repro_torch.core import baselines, fedtv
+    from repro_torch.core.losses import make_prox
+    from repro_torch.core.nlasso import (SolverState, nlasso,
+                                         nlasso_continuation, pd_step,
+                                         primal_dual_gap_certificate,
+                                         solve_nlasso)
+    from repro_torch.data.synthetic import (make_classification_sbm,
+                                            make_sbm_regression)
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    ds = make_sbm_regression(seed=0)
+    g, data = ds.graph, ds.data
+    problem = Problem.create(g, data, 1e-3)
+    cfg = SolverConfig(num_iters=500, rho=1.9)
+    checks, launches = {}, {}
+
+    checks["nlasso"] = legacy_equal(
+        torch, nlasso(g, data, 1e-3, num_iters=500, rho=1.9,
+                      w_true=ds.w_true),
+        Solver(cfg).run(problem, w_true=ds.w_true))
+
+    reset_launches()
+    hooked = nlasso(g, data, 1e-3, num_iters=500, rho=1.9, w_true=ds.w_true,
+                    affine_fn=ops.batched_affine, clip_fn=ops.tv_prox)
+    torch.cuda.synchronize()
+    launches["nlasso_hooks"] = launch_counts()
+    unfused = Solver(cfg.replace(backend="pallas", fused=False)).run(
+        problem, w_true=ds.w_true)
+    checks["nlasso_hooks_vs_unfused"] = legacy_equal(torch, hooked, unfused)
+
+    lasso = Problem.create(g, data, 1e-3, loss="lasso", alpha=0.02,
+                           num_inner=50)
+    checks["nlasso_lasso"] = legacy_equal(
+        torch, nlasso(g, data, 1e-3, num_iters=200, rho=1.9, loss="lasso",
+                      alpha=0.02),
+        Solver(cfg.replace(num_iters=200)).run(lasso))
+    cls = make_classification_sbm(seed=0)
+    logistic = Problem.create(cls.graph, cls.data, 1e-3, loss="logistic",
+                              num_inner=12)
+    checks["nlasso_logistic"] = legacy_equal(
+        torch, nlasso(cls.graph, cls.data, 1e-3, num_iters=200, rho=1.9,
+                      loss="logistic"),
+        Solver(cfg.replace(num_iters=200)).run(logistic))
+
+    t1 = time.perf_counter()
+    cont = nlasso_continuation(g, data, 1e-3, w_true=ds.w_true)
+    torch.cuda.synchronize()
+    cont_s = time.perf_counter() - t1
+    checks["nlasso_continuation"] = legacy_equal(
+        torch, cont, Solver(SolverConfig(
+            continuation=True, warm_iters=3000, final_iters=1000,
+            rho=1.9)).run(problem, w_true=ds.w_true))
+
+    tau, sigma = g.primal_stepsizes(), g.dual_stepsizes()
+    prox = make_prox("squared", data, tau, affine_fn=ops.batched_affine)
+    reset_launches()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        w, u, obj, mse = solve_nlasso(g, data, prox, 1e-3, 500, rho=1.9,
+                                      w_true=ds.w_true, clip_fn=ops.tv_prox)
+    torch.cuda.synchronize()
+    launches["solve_nlasso"] = launch_counts()
+    shim_dw = max(max_diff(w, unfused.w), max_diff(u, unfused.u))
+    checks["solve_nlasso_warns"] = any(
+        issubclass(c.category, DeprecationWarning) for c in caught)
+
+    state = SolverState(torch.zeros_like(ds.w_true),
+                        torch.zeros((g.num_edges, 2), device=dev))
+    w2, u2 = state
+    reg = TotalVariation()
+    reset_launches()
+    for _ in range(100):
+        state = pd_step(g, prox, 1e-3, tau, sigma, state,
+                        clip_fn=ops.tv_prox)
+        w2, u2 = pd_iteration(g, prox, reg, 1e-3, tau, sigma, w2, u2,
+                              clip_fn=ops.tv_prox)
+    torch.cuda.synchronize()
+    launches["pd_step_and_pd_iteration"] = launch_counts()
+    checks["pd_step"] = torch.equal(state.w, w2) and torch.equal(state.u, u2)
+
+    reset_launches()
+    cert = primal_dual_gap_certificate(g, data, hooked.w, hooked.u, 1e-3)
+    torch.cuda.synchronize()
+    launches["certificate"] = launch_counts()
+    want_cert = certificate(problem, hooked.w, hooked.u)
+    checks["certificate"] = (set(cert) == set(want_cert) and all(
+        torch.equal(cert[k], want_cert[k]) for k in cert))
+
+    fcfg = fedtv.FedTVConfig(num_clients=FEDTV_CLIENTS, lam=1e-2)
+    card = fedtv.init_state(fcfg, FEDTV_WIDTH)
+    host = fedtv.init_state(fcfg, FEDTV_WIDTH, device="cpu")
+    rng = np.random.default_rng(0)
+    t1 = time.perf_counter()
+    for _ in range(FEDTV_STEPS):
+        grad = torch.from_numpy(rng.standard_normal(
+            (FEDTV_CLIENTS, FEDTV_WIDTH)).astype(np.float32))
+        card = fedtv.pd_update(card, grad.to(dev), fcfg)
+        host = fedtv.pd_update(host, grad, fcfg)
+    torch.cuda.synchronize()
+    fed_s = time.perf_counter() - t1
+    fed_err = max(max_diff(card[k].cpu(), host[k]) for k in ("delta",
+                                                             "dual"))
+    bound_e = fcfg.lam * card["graph"].weights[:, None]
+    fed_feasible = bool((card["dual"].abs() <= bound_e + 1e-6).all())
+
+    cpu_data = data.to("cpu")
+    w_pool = baselines.pooled_linear_regression(data)
+    checks["baselines"] = bool(
+        np.array_equal(w_pool,
+                       baselines.pooled_linear_regression(cpu_data))
+        and all(baselines.linreg_mse(data, w_pool, on)
+                == baselines.linreg_mse(cpu_data, w_pool, on)
+                and baselines.decision_tree_mse(data, on)
+                == baselines.decision_tree_mse(cpu_data, on)
+                for on in ("train", "test")))
+    emit({"phase": "legacy_s5", "seconds": time.perf_counter() - t0,
+          "checks": checks, "launches": launches,
+          "solve_nlasso_max_abs_d_vs_unfused": shim_dw,
+          "continuation_seconds": cont_s,
+          "continuation_mse_last": float(cont.mse[-1]),
+          "certificate": {k: float(v) for k, v in cert.items()},
+          "fedtv": {"clients": FEDTV_CLIENTS, "d_model": FEDTV_WIDTH,
+                    "edges": card["graph"].num_edges, "steps": FEDTV_STEPS,
+                    "seconds_card_and_cpu": fed_s,
+                    "max_abs_d_vs_cpu": fed_err,
+                    "duals_within_bound": fed_feasible,
+                    "tv": float(fedtv.tv_value(card))},
+          "baselines": {"pooled_test_mse": baselines.linreg_mse(
+              data, w_pool, "test"), "tree_test_mse":
+              baselines.decision_tree_mse(data, "test")}})
+    require(all(checks.values()), f"legacy_s5 checks {checks}")
+    for name in ("nlasso_hooks", "solve_nlasso"):
+        got = launches[name]
+        require(got["tv_prox"] == 500 and got["batched_affine"] == 500
+                and got["fused_pd_step"] == 0,
+                f"legacy_s5 {name} launches {got}")
+    got = launches["pd_step_and_pd_iteration"]
+    require(got["tv_prox"] == 200 and got["batched_affine"] == 200,
+            f"legacy_s5 pd_step / pd_iteration launches {got}")
+    require(launches["certificate"]["sym_pinv"] == 1,
+            f"legacy_s5 certificate launches {launches['certificate']}")
+    require(shim_dw <= PATH_TOL, f"solve_nlasso vs unfused |d| = {shim_dw}")
+    require(fed_err <= FEDTV_TOL and fed_feasible,
+            f"FedTV on the card vs the CPU |d| = {fed_err}, duals within "
+            f"bound {fed_feasible}")
+    require(float(cont.mse[-1]) <= 1e-4,
+            f"§5 continuation MSE {float(cont.mse[-1])}")
+
+
+def phase_legacy_full_size(torch, big, w_true, errs: dict) -> list:
+    """``nlasso`` with the port's kernels as its hooks on the full-size
+    graph (LEGACY_ITERS iterations, rho 1.9) against the unfused pallas
+    solve, bit for bit, each kernel launched once a step; each kernel
+    once on that state (the dual step's clip input and the prox input of
+    the solve's last iterate) against its plain version, timed beside it
+    and the one PyTorch call; the certificate (``sym_pinv``, n = 2)
+    against ``certificate``.  Returns the kernels' entries
+    (``tv_prox[legacy]``, ``batched_affine[legacy]``)."""
+    from repro_torch.api import Solver, SolverConfig, certificate
+    from repro_torch.core.nlasso import nlasso, primal_dual_gap_certificate
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import batched_affine_ref, tv_prox_ref
+    from repro_torch.kernels.ridge_prox import batched_affine
+    from repro_torch.kernels.tv_prox import tv_prox
+
+    g, data = big.graph, big.data
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reset_launches()
+    res = nlasso(g, data, big.lam, num_iters=LEGACY_ITERS, rho=1.9,
+                 w_true=w_true, affine_fn=ops.batched_affine,
+                 clip_fn=ops.tv_prox)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = launch_counts()
+    want = Solver(SolverConfig(backend="pallas", fused=False,
+                               num_iters=LEGACY_ITERS, rho=1.9)).run(
+        big, w_true=w_true)
+    same = legacy_equal(torch, res, want)
+
+    # each kernel once on the solve's state
+    tau, sigma = g.primal_stepsizes(), g.dual_stepsizes()
+    bnd = (big.lam * g.weights).contiguous()
+    u_in = (res.u + sigma[:, None] * g.incidence_apply(res.w)).contiguous()
+    tv_err = max_diff(tv_prox(u_in, bnd), tv_prox_ref(u_in, bnd))
+    clipped = float((u_in.abs() > bnd[:, None]).float().mean())
+    lo, hi = -bnd[:, None], bnd[:, None]
+    tv_cost = bound(4 * (u_in.numel() + bnd.numel()), 4 * u_in.numel(),
+                    2 * u_in.numel())
+    tv_times = {"ms": cuda_ms(lambda _: tv_prox(u_in, bnd), reps=20),
+                "plain_ms": cuda_ms(lambda _: tv_prox_ref(u_in, bnd),
+                                    reps=20),
+                "library_ms": cuda_ms(lambda _: torch.clamp(u_in, lo, hi),
+                                      reps=20)}
+    params = big.loss.prox_setup(data, tau)
+    p = params["p"].contiguous()
+    v = (res.w - tau[:, None] * g.incidence_transpose_apply(res.u)
+         + params["b"]).contiguous()
+    affine_err = max_diff(batched_affine(p, v), batched_affine_ref(p, v))
+    # a call's inputs fit in L2: time over copies that together exceed
+    # it four times, so each call reads from HBM (as unfused_full_size)
+    per_copy = 4 * (p.numel() + v.numel())
+    copies = max(2, int(-(-4 * L2_BYTES // per_copy)))
+    ps = [p.clone() for _ in range(copies)]
+    vs = [v.clone() for _ in range(copies)]
+    affine_cost = bound(per_copy, 4 * v.numel(), 2 * p.numel())
+    affine_times = {
+        "ms": cuda_ms(lambda i: batched_affine(ps[i], vs[i]), reps=50,
+                      copies=copies),
+        "plain_ms": cuda_ms(lambda i: batched_affine_ref(ps[i], vs[i]),
+                            reps=50, copies=copies),
+        "library_ms": cuda_ms(lambda i: torch.bmm(ps[i], vs[i][..., None]),
+                              reps=50, copies=copies)}
+    del ps, vs
+
+    reset_launches()
+    cert = primal_dual_gap_certificate(g, data, res.w, res.u, big.lam)
+    torch.cuda.synchronize()
+    cert_launches = read_launches()["sym_pinv"]
+    want_cert = certificate(big, res.w, res.u)
+    cert_same = set(cert) == set(want_cert) and all(
+        torch.equal(cert[k], want_cert[k]) for k in cert)
+    emit({"phase": "legacy_full_size", "nodes": big.num_nodes,
+          "edges": g.num_edges, "iterations": LEGACY_ITERS,
+          "solve_seconds": solve_s,
+          "iterations_per_s": LEGACY_ITERS / solve_s,
+          "launches": launches, "bit_identical_to_unfused_solve": same,
+          "mse_last": float(res.mse[-1]),
+          "tv_prox": {"shape": list(u_in.shape), "max_abs_err": tv_err,
+                      "clipped_share": clipped, **tv_times, **tv_cost},
+          "batched_affine": {"shape": list(p.shape),
+                             "max_abs_err": affine_err,
+                             "timing_copies": copies, **affine_times,
+                             **affine_cost},
+          "certificate": {k: float(x) for k, x in cert.items()},
+          "certificate_sym_pinv_launches": cert_launches,
+          "certificate_equal": cert_same,
+          "seconds": time.perf_counter() - t0})
+    require(same, "full-size nlasso with the kernels as hooks differs from "
+                  "the unfused pallas solve")
+    require(launches["tv_prox"] == LEGACY_ITERS
+            and launches["batched_affine"] == LEGACY_ITERS
+            and launches["fused_pd_step"] == 0,
+            f"full-size nlasso launches {launches}")
+    require(tv_err == 0.0, f"legacy tv_prox vs plain |d| = {tv_err}")
+    require(clipped > 0.0, "legacy tv_prox check clipped no entry")
+    require(affine_err <= AFFINE_TOL,
+            f"legacy batched_affine vs plain |d| = {affine_err}")
+    require(cert_same and cert_launches == 1,
+            f"full-size certificate: equal {cert_same}, sym_pinv launches "
+            f"{cert_launches}")
+    errs["tv_prox[legacy]"] = errs["tv_prox"]
+    errs["batched_affine[legacy]"] = errs["batched_affine"]
+    return [dict(KERNELS["tv_prox[legacy]"], launches=launches["tv_prox"],
+                 max_abs_err=tv_err, ms=tv_times["ms"],
+                 plain_ms=tv_times["plain_ms"], bound_ms=tv_cost["bound_ms"],
+                 bound_by=tv_cost["bound_by"],
+                 library_ms=tv_times["library_ms"]),
+            dict(KERNELS["batched_affine[legacy]"],
+                 launches=launches["batched_affine"],
+                 max_abs_err=affine_err, ms=affine_times["ms"],
+                 plain_ms=affine_times["plain_ms"],
+                 bound_ms=affine_cost["bound_ms"],
+                 bound_by=affine_cost["bound_by"],
+                 library_ms=affine_times["library_ms"])]
+
+
+#: runs ``experiments/run_torch.py`` (argv after the code) with the
+#: kernels' launch counters zeroed, then prints their counts as the last
+#: line: the harness's own process, on the card
+COUNTED_HARNESS = """
+import json, runpy, sys
+sys.path.insert(0, "src")
+from repro_torch.kernels.pd_step import fused_pd_step
+fused_pd_step.launches = 0
+fused_pd_step.lane_launches.clear()
+sys.argv = ["experiments/run_torch.py"] + sys.argv[1:]
+try:
+    runpy.run_path("experiments/run_torch.py", run_name="__main__")
+except SystemExit as e:
+    if e.code:
+        raise
+print(json.dumps({"fused_pd_step": fused_pd_step.launches,
+                  "lanes": dict(fused_pd_step.lane_launches)}))
+"""
+
+
+def start_examples() -> dict:
+    """Start the ``examples`` phase's three processes on the card, all
+    together: ``examples/quickstart_torch.py`` at its full §5 size,
+    ``examples/scenario_tour_torch.py`` with ``REPRO_SMOKE=1`` and
+    ``experiments/run_torch.py --smoke`` over two scenarios through the
+    dense and pallas backends into a temporary directory (through
+    COUNTED_HARNESS).  They are host-bound small solves, so they run
+    while ``legacy_s5`` does (which times nothing it checks);
+    :func:`phase_examples` waits for them.  Each writes its output to
+    files in a temporary directory (no pipe to fill while nobody reads
+    it).  Returns the processes, that directory and the start time."""
+    import os
+    import tempfile
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    out = Path(tempfile.mkdtemp(prefix="examples", dir=ROOT / "build"))
+    base = {k: v for k, v in os.environ.items()
+            if k not in ("REPRO_SMOKE", "REPRO_FULL",
+                         "REPRO_SOLVER_MAX_ITERS")}
+    runs = {
+        "quickstart": ([sys.executable, "examples/quickstart_torch.py"],
+                       base),
+        "scenario_tour": ([sys.executable, "examples/scenario_tour_torch.py"],
+                          dict(base, REPRO_SMOKE="1")),
+        "experiments": ([sys.executable, "-c", COUNTED_HARNESS, "--smoke",
+                         "--scenarios", "sbm_regression,clustered_logistic",
+                         "--backends", "dense,pallas", "--out", str(out)],
+                        base)}
+    t0 = time.perf_counter()
+    procs = {}
+    for name, (cmd, env) in runs.items():
+        with open(out / f"{name}.out", "w") as fo, \
+                open(out / f"{name}.err", "w") as fe:
+            procs[name] = subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                           stdout=fo, stderr=fe)
+    return {"procs": procs, "out": out, "t0": t0}
+
+
+def stop_examples(started: dict) -> None:
+    """Kill whichever of the processes :func:`start_examples` started
+    still runs, and remove their directory."""
+    import shutil
+
+    for proc in started["procs"].values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    shutil.rmtree(started["out"], ignore_errors=True)
+
+
+def phase_examples(torch, started: dict) -> None:
+    """Wait for the processes :func:`start_examples` started and check
+    them: each must exit 0 (their last lines are echoed); the quickstart's
+    claims (cluster means within 0.25 of the truth, the nLasso test MSE
+    below both baselines'); every scenario of the tour solved; the
+    harness's pallas rows ran the fused kernel's lanes (the launch
+    counter of the harness's own process) and are within SOLVE_TOL of
+    its dense rows."""
+    import re
+
+    from repro_torch.scenarios import SCENARIOS
+
+    procs, out, t0 = started["procs"], started["out"], started["t0"]
+    t1 = time.perf_counter()
+    done = {}
+    try:
+        for name, proc in procs.items():
+            proc.wait(timeout=EXAMPLE_TIMEOUT)
+            stdout = (out / f"{name}.out").read_text()
+            stderr = (out / f"{name}.err").read_text()
+            done[name] = {"returncode": proc.returncode,
+                          "seconds": time.perf_counter() - t0,
+                          "last_lines": stdout.strip().splitlines()[-6:],
+                          "stderr_tail": stderr.strip().splitlines()[-6:]
+                          if proc.returncode else [], "stdout": stdout}
+        report = (json.loads((out / "report.json").read_text())
+                  if done["experiments"]["returncode"] == 0 else None)
+    finally:
+        stop_examples(started)
+    for name, rec in done.items():
+        require(rec["returncode"] == 0,
+                f"examples: {name} exited {rec['returncode']}: "
+                f"{rec['stderr_tail']}")
+    quick = done["quickstart"]["stdout"]
+    means = [tuple(map(float, m)) for m in re.findall(
+        r"learned mean w = \(([-+.\d]+), ([-+.\d]+)\)", quick)]
+    mses = {k: float(re.search(rf"{k}: ([-+.\de]+)", quick).group(1))
+            for k in ("nLasso", "pooled linear regression",
+                      "decision tree")}
+    tour_solved = done["scenario_tour"]["stdout"].count("   solved:")
+    counted = json.loads(done["experiments"]["stdout"].strip()
+                         .splitlines()[-1])
+    dense = {(r["scenario"], r["lam"]): r for r in report["rows"]
+             if r["backend"] == "dense"}
+    pallas = [r for r in report["rows"] if r["backend"] == "pallas"]
+    # |pallas - dense| relative to max(1, |dense|): the harness's metrics
+    # span 1e-7 (an MSE) to ~50 (an objective)
+    gaps = [abs(r[k] - dense[r["scenario"], r["lam"]][k])
+            / max(1.0, abs(dense[r["scenario"], r["lam"]][k]))
+            for r in pallas for k in ("objective", "weight_mse",
+                                      "prediction_mse", "accuracy")
+            if r[k] is not None]
+    for rec in done.values():
+        del rec["stdout"]
+    emit({"phase": "examples", "seconds": time.perf_counter() - t0,
+          "waited_seconds": time.perf_counter() - t1, "runs": done,
+          "quickstart_cluster_means": means,
+          "quickstart_test_mse": mses, "scenario_tour_solved": tour_solved,
+          "experiments_launches": counted,
+          "experiments_rows": len(report["rows"]),
+          "experiments_skipped": report["skipped"],
+          "pallas_vs_dense_max_rel_d": max(gaps, default=None)})
+    truth = [(2.0, 2.0), (-2.0, 2.0)]
+    require(len(means) == 2 and all(
+        abs(a - b) <= 0.25 for m, t in zip(means, truth)
+        for a, b in zip(m, t)), f"quickstart cluster means {means}")
+    require(mses["nLasso"] < min(mses["pooled linear regression"],
+                                 mses["decision tree"]),
+            f"quickstart test MSEs {mses}")
+    require(tour_solved == len(SCENARIOS),
+            f"scenario tour solved {tour_solved} of {len(SCENARIOS)}")
+    require(counted["fused_pd_step"] > 0 and counted["lanes"],
+            f"the harness's pallas rows launched {counted}")
+    require(len(pallas) == len(dense) > 0 and len(gaps) > 0
+            and max(gaps) <= SOLVE_TOL,
+            f"the harness's pallas rows vs its dense rows: {max(gaps)}")
+
+
 DATA_FIELDS = ("x", "y", "sample_mask", "labeled_mask")
 # the A/B instance's problems: loss -> (lambda, loss options)
 AB_PROBLEMS = {"squared": (1e-3, {}), "logistic": (1e-3, {}),
@@ -4684,10 +5174,20 @@ def main() -> int:
     errs["fused_pd_step[sharded]"] = phase_sharded_s5(torch, dev)
     kernels.append(phase_sharded_full_size(torch, dev))
     phase_sharded_ranks(torch, dev)
-    del big, others, data, w_true
+    del others
     torch.cuda.empty_cache()
     kernels += phase_wide_streamed(torch, dev)
     kernels += phase_many_samples_full_size(torch, dev)
+    examples = start_examples()
+    try:
+        phase_legacy_s5(torch, dev)
+    except BaseException:
+        stop_examples(examples)
+        raise
+    phase_examples(torch, examples)
+    kernels += phase_legacy_full_size(torch, big, w_true, errs)
+    del big, data, w_true
+    torch.cuda.empty_cache()
     for k in kernels:
         k["max_abs_err"] = max(k["max_abs_err"], errs[k["name"]])
     emit({"kernels": kernels})

@@ -85,6 +85,20 @@ def get_backend(name: str) -> Callable:
             f"unknown backend {name!r}; registered: {sorted(BACKENDS)}")
 
 
+def pd_iteration(graph, prox: Callable, regularizer, lam,
+                 tau: torch.Tensor, sigma: torch.Tensor, w: torch.Tensor,
+                 u: torch.Tensor, *, clip_fn: Callable | None = None):
+    """One primal-dual step on the dense executor.
+
+    Compatibility adapter over the canonical
+    :func:`repro_torch.engine.step.pd_step` — kept so the legacy
+    ``core.nlasso.pd_step`` shim and FedTV's personalization update keep
+    their historical signature.
+    """
+    return engine_pd_step(DenseExecutor(graph), prox, regularizer, lam,
+                          tau, sigma, w, u, clip_fn=clip_fn)
+
+
 def _diagnostics(problem: Problem, w, u, config: SolverConfig) -> dict:
     """Certificate per config — empty for throwaway (warm-phase) solves."""
     if not config.compute_diagnostics:

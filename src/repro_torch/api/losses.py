@@ -339,3 +339,25 @@ class LogisticLoss(Loss):
 
     def prox_param_floats(self, num_samples, num_features):
         return num_samples * (num_features + 2) + 3
+
+
+@dataclasses.dataclass(frozen=True)
+class CallableLoss(Loss):
+    """Adapter for caller-supplied prox operators (legacy entry points).
+
+    Wraps an externally-built ``prox(v)`` while delegating metric values to
+    ``base``.  Not registered — exists so ``core.nlasso.solve_nlasso`` can
+    keep accepting arbitrary prox callables through the solver.  No
+    ``prox_setup``: the fused kernel cannot take an opaque callable, so
+    the pallas backend runs it on the unfused path, and the sharded
+    backends refuse it.
+    """
+
+    prox_fn: Callable = None
+    base: Loss = None
+
+    def node_values(self, data, w):
+        return self.base.node_values(data, w)
+
+    def make_prox(self, data, tau, *, affine_fn=None):
+        return self.prox_fn

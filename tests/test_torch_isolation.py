@@ -1,8 +1,11 @@
 """The port stands alone and refuses loudly what it does not run yet.
 
-  * no module of ``src/repro_torch/`` (nor ``chip_smoke.py``) imports
-    ``jax`` or the reference package ``repro`` — the serving layer
-    (``repro_torch.serving``) among them,
+  * no module of ``src/repro_torch/`` (nor ``chip_smoke.py``, the
+    examples ``examples/*_torch.py`` or ``experiments/run_torch.py``)
+    imports ``jax`` or the reference package ``repro`` — the serving
+    layer (``repro_torch.serving``) among them — and the public surfaces
+    ``repro_torch.api`` and ``repro_torch.core`` export the reference's
+    names,
   * entry points default to the CUDA card and raise without one instead
     of moving to the CPU (``solve_path`` and ``solve_many`` run on their
     problems' device, which defaults to the card; a plan file loads onto
@@ -29,8 +32,10 @@ from repro_torch.core.graph import build_graph              # noqa: E402
 from repro_torch.data.synthetic import make_sbm_regression  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+              + sorted((ROOT / "examples").glob("*_torch.py"))
+              + [ROOT / "experiments" / "run_torch.py",
+                 ROOT / "chip_smoke.py"])
 
 
 def _imported_roots(path: Path) -> set:
@@ -49,6 +54,27 @@ def test_port_imports_neither_jax_nor_reference(path):
     assert path.exists(), path
     bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
     assert not bad, (path, bad)
+
+
+def test_examples_and_harness_are_checked():
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert {"examples/quickstart_torch.py", "examples/scenario_tour_torch.py",
+            "examples/federated_round_trip_torch.py",
+            "examples/serving_stream_torch.py",
+            "examples/observability_tour_torch.py",
+            "examples/distributed_nlasso_torch.py",
+            "experiments/run_torch.py"} <= names
+
+
+@pytest.mark.parametrize("package", ["api", "core"])
+def test_public_surface_equals_reference(package):
+    import importlib
+
+    port = importlib.import_module(f"repro_torch.{package}")
+    ref = importlib.import_module(f"repro.{package}")
+    assert port.__all__ == ref.__all__
+    for name in port.__all__:
+        assert getattr(port, name) is not None, name
 
 
 @pytest.fixture
