@@ -686,11 +686,14 @@ def kernel_cases() -> list:
 
 def kernel_digests(torch, device) -> dict:
     """A SHA-256 of the kernel's outputs (w, u, residual) on each of
-    ``kernel_cases``' inputs, one lane and three (``lane_args``), with
-    the checkout's own ``ops.pd_step``: the A/B run compares them across
+    ``kernel_cases``' inputs, one lane and three (``lane_args``; on the
+    state layout the checkout's fused lambda path would hand the kernel:
+    lane-minor where it has ``backends._fused_lane_minor``), with the
+    checkout's own ``ops.pd_step``: the A/B run compares them across
     checkouts (the register-tile variants must not change their bits)."""
     import hashlib
 
+    from repro_torch.api import backends
     from repro_torch.api.regularizers import SquaredTV, TotalVariation
     from repro_torch.kernels import ops
 
@@ -702,7 +705,13 @@ def kernel_digests(torch, device) -> dict:
         kw.update(loss=port_loss(loss), reg=regs[reg], rho=rho, iters=iters,
                   compute_residual=True)
         h = hashlib.sha256()
-        for a in (args, lane_args(torch, args, 3)):
+        lanes = lane_args(torch, args, 3)
+        samples = args[4][4].shape[1] if loss == "logistic" else 0
+        if hasattr(backends, "_fused_lane_minor") and \
+                backends._fused_lane_minor(kw["loss"], n, samples, 3,
+                                           torch.device(device)):
+            lanes = lane_minor_args(lanes)
+        for a in (args, lanes):
             for t in ops.pd_step(*a, **kw):
                 h.update(t.detach().float().cpu().numpy().tobytes())
         out[f"{loss}/{dt}/v{v}/n{n}/bv{bv}/rho{rho}/{reg}/i{iters}"] = \
@@ -786,6 +795,7 @@ def reset_launches() -> None:
     fused_pd_step.launches = tv_prox.launches = batched_affine.launches = 0
     sym_pinv.launches = 0
     fused_pd_step.variant_launches.clear()
+    fused_pd_step.lane_minor_launches.clear()
     for fn in (fused_pd_step, tv_prox, batched_affine):
         fn.lane_launches.clear()
 
@@ -794,7 +804,8 @@ def read_launches() -> dict:
     """Launches per kernel since the last reset, and fused_pd_step's by
     variant ("<loss>/<dtype>"); the launches over more than one lane by
     variant (fused_pd_step), u's dtype (tv_prox) or P's kind
-    (batched_affine); and the certificate's sym_pinv."""
+    (batched_affine), and fused_pd_step's of them on lane-minor state by
+    variant; and the certificate's sym_pinv."""
     from repro_torch.kernels.pd_step import fused_pd_step
     from repro_torch.kernels.ridge_prox import batched_affine
     from repro_torch.kernels.sym_pinv import sym_pinv
@@ -806,7 +817,9 @@ def read_launches() -> dict:
             "fused_pd_step_variants": dict(fused_pd_step.variant_launches),
             "lanes": {"fused_pd_step": dict(fused_pd_step.lane_launches),
                       "tv_prox": dict(tv_prox.lane_launches),
-                      "batched_affine": dict(batched_affine.lane_launches)}}
+                      "batched_affine": dict(batched_affine.lane_launches)},
+            "lane_minor": {
+                "fused_pd_step": dict(fused_pd_step.lane_minor_launches)}}
 
 
 #: the kernels whose runs on the card ``device_executions`` reads
@@ -1787,6 +1800,15 @@ def lane_args(torch, args, lanes: int):
     return out
 
 
+def lane_minor_args(args):
+    """``lane_args``' lane-major arguments with the stores and la
+    lane-minor (``lane_minor_copy``)."""
+    out = list(args)
+    for i in (0, 1, 9):
+        out[i] = lane_minor_copy(args[i])
+    return out
+
+
 def one_lane(args, lane: int):
     out = list(args)
     out[0], out[1], out[9] = args[0][lane], args[1][lane], args[9][lane]
@@ -1799,8 +1821,11 @@ def phase_lanes_vs_plain(torch, dev) -> dict:
     ``kernel_vs_plain`` holds one lane: STEP_TOL for one iteration, the
     metric block's SOLVE_TOL for a five-iteration launch) and against
     three one-lane launches (bit-identical: each lane sums in the
-    one-lane order).
+    one-lane order); where the fused lambda path would hand the kernel
+    lane-minor state (``backends._fused_lane_minor``), the launch on it
+    too (the same bits as on lane-major state).
     Returns the max error per lane kernels' line name."""
+    from repro_torch.api import backends
     from repro_torch.api.regularizers import SquaredTV, TotalVariation
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import batched_affine_ref, tv_prox_ref
@@ -1827,6 +1852,12 @@ def phase_lanes_vs_plain(torch, dev) -> dict:
             ones = [ops.pd_step(*one_lane(largs, k), **kw)
                     for k in range(3)]
             want = plain_step(*largs, **kw)
+            samples = args[4][4].shape[1] if loss == "logistic" else 0
+            minor = backends._fused_lane_minor(kw["loss"], n, samples, 3,
+                                               torch.device(dev))
+            same_minor = not minor or all(
+                torch.equal(a, b) for a, b in zip(
+                    ops.pd_step(*lane_minor_args(largs), **kw), got))
             torch.cuda.synchronize()
             # one call: the one-call limit; a multi-iteration launch: the
             # limit of a metric block (float32 drift between two sum
@@ -1841,6 +1872,8 @@ def phase_lanes_vs_plain(torch, dev) -> dict:
                        torch.equal(g[k], o)
                        for k, one in enumerate(ones)
                        for g, o in zip(got, one)),
+                   "lane_minor": minor,
+                   "lane_minor_bit_identical": same_minor,
                    "dw": max(c["dw"] for c in checks),
                    "du": max(c["du"] for c in checks),
                    "dres": max(c["dres"] for c in checks),
@@ -1849,6 +1882,8 @@ def phase_lanes_vs_plain(torch, dev) -> dict:
             require(row["ok"], f"lane kernel vs plain version {row}")
             require(row["bit_identical_to_one_lane_launches"],
                     f"lane launch differs from one-lane launches {row}")
+            require(row["lane_minor_bit_identical"],
+                    f"lane-minor launch differs from lane-major {row}")
             key = f"{loss}/{dt}"
             if key in names:
                 errs[names[key]] = max(errs[names[key]], row["dw"],
@@ -2035,12 +2070,22 @@ def phase_wide_vs_plain(torch, dev) -> dict:
     return errs
 
 
+def lane_minor_copy(t):
+    """A lane-minor copy of lane-stacked ``t`` (L, rows, n): an (L, rows,
+    n) view of (rows, L, n) storage, the layout the fused lambda path
+    hands the register tile's lane kernel."""
+    return t.transpose(0, 1).contiguous().transpose(0, 1)
+
+
 def lane_kernel_entry(torch, dev, problem, lams, store, launches: int,
                       rho: float, block: int,
                       name=None) -> tuple[dict, dict]:
-    """The fused kernel over the path's lanes at full size, alone: ms per
-    ``iters=1`` launch over every lane against the same lanes as one-lane
-    launches side by side (whole, and each phase alone, ``one_phase``),
+    """The fused kernel over the path's lanes at full size, alone, on the
+    state layout the solver hands it (``backends._fused_lane_minor``:
+    lane-minor for the register tile's lane kernel): ms per ``iters=1``
+    launch over every lane against the same lanes as one-lane launches
+    side by side (whole, and each phase alone, ``one_phase``), beside it
+    the launch on lane-major state (whole and each phase; the same bits),
     the plain version over the lanes, the bound
     (shared tables once, each lane's state), and a ``block``-iteration
     launch held against the one-lane launches (bit-identical) and, in
@@ -2053,23 +2098,26 @@ def lane_kernel_entry(torch, dev, problem, lams, store, launches: int,
     from repro_torch.kernels import ops
 
     lt = backends._graph_layout(problem.graph)
+    n, lanes = problem.num_features, len(lams)
+    minor = backends._fused_lane_minor(problem.loss, n,
+                                       problem.data.x.shape[-2], lanes, dev)
     (params_s, pkeys, _, tau_s, _, sig2, src2, dst2, la2, _) = \
         backends._fused_setup(problem.graph, problem.data, lams, None,
                               loss=problem.loss, reg=problem.regularizer,
                               layout=lt, dtype=store)
-    n, lanes = problem.num_features, len(lams)
     states = [moving_state(torch, lt, n, la2[k], dev, store)
               for k in range(lanes)]
-    args = (torch.stack([s[0] for s in states]),
-            torch.stack([s[1] for s in states]),
-            lt.pad_node_store(lt.inc_edges), lt.pad_node_store(lt.inc_signs),
-            params_s, tau_s, src2, dst2, sig2, la2)
+    major = (torch.stack([s[0] for s in states]),
+             torch.stack([s[1] for s in states]),
+             lt.pad_node_store(lt.inc_edges), lt.pad_node_store(lt.inc_signs),
+             params_s, tau_s, src2, dst2, sig2, la2)
     del states
+    args = lane_minor_args(major) if minor else major
     kw = dict(loss=problem.loss, reg=problem.regularizer, pkeys=pkeys,
               block_nodes=lt.block_nodes, block_edges=lt.block_edges,
               kn=lt.kn, klo=lt.klo, khi=lt.khi, rho=rho,
               incidence=lt.compact)
-    singles = [one_lane(args, k) for k in range(lanes)]
+    singles = [one_lane(major, k) for k in range(lanes)]
     ms = cuda_ms(lambda _: ops.pd_step(*args, **kw), reps=20)
     ones_ms = cuda_ms(lambda _: [ops.pd_step(*a, **kw) for a in singles],
                       reps=20)
@@ -2081,6 +2129,12 @@ def lane_kernel_entry(torch, dev, problem, lams, store, launches: int,
                 lambda _: ops.pd_step(*args, **kw), reps=20)
             phases[f"{phase}_phase_ms_one_lane_launches"] = cuda_ms(
                 lambda _: [ops.pd_step(*a, **kw) for a in singles], reps=20)
+            if minor:
+                phases[f"{phase}_phase_ms_lane_major"] = cuda_ms(
+                    lambda _: ops.pd_step(*major, **kw), reps=20)
+    if minor:
+        phases["ms_lane_major"] = cuda_ms(
+            lambda _: ops.pd_step(*major, **kw), reps=20)
     if name is None:
         def plain():
             return plain_step(*args, **kw)
@@ -2099,12 +2153,20 @@ def lane_kernel_entry(torch, dev, problem, lams, store, launches: int,
     ones = [ops.pd_step(*a, **kw, iters=block_iters) for a in singles]
     ident = all(torch.equal(got[0][k], o[0]) and torch.equal(got[1][k], o[1])
                 for k, o in enumerate(ones))
-    row = {"lanes": lanes, "ms_per_launch": ms,
+    major_ident = True
+    if minor:
+        major_ident = all(torch.equal(a, b) for a, b in zip(
+            step_got, ops.pd_step(*major, **kw))) and all(
+            torch.equal(a, b) for a, b in zip(
+                got, ops.pd_step(*major, **kw, iters=block_iters)))
+    row = {"lanes": lanes, "layout": "lane-minor" if minor else "lane-major",
+           "ms_per_launch": ms,
            "ms_one_lane_launches": ones_ms, **phases,
            "ms_per_lane": ms / lanes, "plain_ms": plain_ms,
            "step_max_abs_err_vs_plain": err,
            "block_iters": block_iters,
            "block_bit_identical_to_one_lane_launches": ident,
+           "bit_identical_to_lane_major_launch": major_ident,
            **step_cost(args, kw, problem.loss)}
     # float32: the one-call limit; bf16: one ulp at each output's scale
     lim_w = lim_u = STEP_TOL
@@ -2115,6 +2177,7 @@ def lane_kernel_entry(torch, dev, problem, lams, store, launches: int,
     require(dw <= lim_w and du <= lim_u,
             f"lane kernel vs plain at full size {row}")
     require(ident, f"lane launch vs one-lane launches at full size {row}")
+    require(major_ident, f"lane-minor launch vs lane-major at full size {row}")
     if (problem.loss.name == "squared" and store == torch.float32
             and n <= 16):
         # the block against the plain version: within SOLVE_TOL, or no
@@ -2143,7 +2206,7 @@ def lane_kernel_entry(torch, dev, problem, lams, store, launches: int,
     entry = dict(KERNELS[name], launches=launches, max_abs_err=err, ms=ms,
                  plain_ms=plain_ms, bound_ms=row["bound_ms"],
                  bound_by=row["bound_by"], library_ms=None)
-    del args, singles, got, ones, step_got, step_want
+    del args, major, singles, got, ones, step_got, step_want
     torch.cuda.empty_cache()
     return row, entry
 
@@ -2184,6 +2247,15 @@ def path_run(torch, dev, problem, lams, cfg, w_true, *, dense=False,
     # the full-size graph) before the lanes run again
     res = dataclasses.replace(res, u=None)
     lane_launches = launches["lanes"]["fused_pd_step"].get(variant, 0)
+    # the register tile's lane kernel runs on lane-minor state, every
+    # other variant on lane-major
+    minor = backends._fused_lane_minor(problem.loss, n,
+                                       problem.data.x.shape[-2], len(lams),
+                                       dev)
+    minor_launches = launches["lane_minor"]["fused_pd_step"].get(variant, 0)
+    require(minor_launches == (lane_launches if minor else 0),
+            f"{variant} path: {minor_launches} of {lane_launches} lane "
+            f"launches on lane-minor state")
     # one launch per metric block on a whole-graph layout, else per step
     per = (cfg.metric_every
            if backends._graph_layout(problem.graph).num_blocks == 1 else 1)
@@ -2230,7 +2302,8 @@ def path_run(torch, dev, problem, lams, cfg, w_true, *, dense=False,
            "lams": [float(x) for x in lams], "nodes": problem.num_nodes,
            "edges": problem.graph.num_edges, "warm_iters": warm_iters,
            "final_iters": final_iters, "solve_path_seconds": wall,
-           "launches": launches, "max_memory_allocated": peak,
+           "launches": launches, "lane_minor_launches": minor_launches,
+           "max_memory_allocated": peak,
            "lanes_seconds": lanes_s,
            "iterations_per_s_per_lane": final_iters / lanes_s,
            "iterations_per_s_sweep": len(lams) * final_iters / lanes_s,
@@ -2279,7 +2352,8 @@ def phase_path_full_size(torch, dev, big, w_true, others) -> list:
     final iterations), against one-lane solves and the dense path's
     sweep, and in bf16 storage; the lasso and logistic instances of
     ``full_size_variants`` in float32 (300 + 300); each against one-lane
-    solves, and each lane kernel alone.  (Depths cut to leave the
+    solves, every lane launch on lane-minor state, and each lane kernel
+    alone.  (Depths cut to leave the
     script's time to the wide and streamed phases.)
     Returns the kernels' entries."""
     from repro_torch.api import SolverConfig
@@ -2297,6 +2371,9 @@ def phase_path_full_size(torch, dev, big, w_true, others) -> list:
                                               final_iters=300), False)):
         row, launches = path_run(torch, dev, problem, PATH_LAMS, run_cfg,
                                  truth, dense=dense)
+        require(row["lane_minor_launches"] == launches > 0,
+                f"the register tile's lane launches on lane-minor state "
+                f"{row['lane_minor_launches']} of {launches}")
         row["kernel"], entry = lane_kernel_entry(
             torch, dev, problem, PATH_LAMS, getattr(torch, run_cfg.dtype),
             launches, run_cfg.rho, run_cfg.metric_every)
@@ -4947,6 +5024,40 @@ def time_variants(torch, problems: dict, lt, compact: bool,
     return rows
 
 
+def time_lane_variants(torch, problems: dict, lt, compact: bool,
+                       device) -> dict:
+    """The register tile's lane kernel over six lanes (``lane_args``:
+    lambda 1x to 0.1x) of the saved instance's squared loss in float32
+    and bfloat16 and its lasso and logistic losses in float32: ms per
+    ``iters=1`` launch and each phase alone (``one_phase``), on
+    lane-major state and, where the checkout's fused lambda path lays
+    its state out lane-minor (``backends._fused_lane_minor``), on
+    lane-minor state."""
+    from repro_torch.api import backends
+    from repro_torch.kernels import ops
+
+    rows = {}
+    for loss, dtype in (("squared", "float32"), ("squared", "bfloat16"),
+                        ("lasso", "float32"), ("logistic", "float32")):
+        args, kw = problem_args(torch, problems[loss], lt,
+                                getattr(torch, dtype), device, compact)
+        layouts = {"lane_major": lane_args(torch, args, len(PATH_LAMS))}
+        if hasattr(backends, "_fused_lane_minor"):
+            layouts["lane_minor"] = lane_minor_args(layouts["lane_major"])
+        row = {"lanes": len(PATH_LAMS)}
+        for tag, a in layouts.items():
+            def step(_, a=a):
+                return ops.pd_step(*a, **kw)
+            row[f"ms_{tag}"] = cuda_ms(step, reps=20)
+            for phase in ("node", "edge"):
+                with one_phase(phase):
+                    row[f"{phase}_phase_ms_{tag}"] = cuda_ms(step, reps=20)
+        rows[f"{loss}/{dtype}/lanes"] = row
+        del args, layouts
+        torch.cuda.empty_cache()
+    return rows
+
+
 def time_wide_variants(torch, graph, assign, lt, compact: bool,
                        device) -> dict:
     """``time_variants`` for the wide kernel: each loss of
@@ -4998,7 +5109,8 @@ def time_fused_solve(root: Path, path: Path, reps: int = 3,
     after the kernel library is built: the set-up a solve pays), the
     fused squared float32 continuation solve (after one warm-up solve),
     and every ``fused_pd_step`` variant alone per step with its phase
-    split (``time_variants``; the wide ones at n = WIDE_N:
+    split (``time_variants``; the register tile's lane kernel over six
+    lanes: ``time_lane_variants``; the wide ones at n = WIDE_N:
     ``time_wide_variants``; the register tile's streamed logistic one on
     the many-sample instance: ``time_streamed_variants``).  Uses only
     what every slice of the port since the third has (the wide and
@@ -5049,6 +5161,8 @@ def time_fused_solve(root: Path, path: Path, reps: int = 3,
         rates.append((cfg.warm_iters + cfg.final_iters)
                      / (time.perf_counter() - t0))
     out["kernels"] = time_variants(torch, problems, lt, compact, device)
+    out["lane_kernels"] = time_lane_variants(torch, problems, lt, compact,
+                                             device)
     out["wide_kernels"] = time_wide_variants(torch, graph, z["assign"], lt,
                                              compact, device)
     out["streamed_kernels"] = time_streamed_variants(torch, compact, device)
@@ -5062,7 +5176,9 @@ def ab_main(argv: list) -> int:
     in turns (parent, change, change, parent), each in its own process
     on the saved full-size instances: the fused squared float32 solve,
     and every ``fused_pd_step`` variant's ms per step with its node and
-    edge phases (``time_variants``; the wide variant at n = WIDE_N on
+    edge phases (``time_variants``; the register tile's lane kernel over
+    six lanes on lane-major and, in a checkout that has it, lane-minor
+    state, ``time_lane_variants``; the wide variant at n = WIDE_N on
     the same graph, ``time_wide_variants``; the streamed logistic one on
     the many-sample instance in float32, bfloat16 and over six lanes,
     ``time_streamed_variants``), and the register-tile kernel's

@@ -501,8 +501,37 @@ def _should_fuse(problem: Problem, config: SolverConfig, *,
                                    lanes=min(lanes, pd_kernel.MAX_LANES)))
 
 
+def _fused_lane_minor(loss: Loss, n: int, num_samples: int, lanes: int,
+                      device: torch.device) -> bool:
+    """The lane layout of a fused lambda path's state: lane-minor (an (L,
+    rows, n) view of (rows, L, n) storage, so the kernel reads every
+    lane's row in one visit) where each launch is the register tile's
+    staged lane kernel (``csrc/pd_step_lanes.cuh``): on the card, n <=
+    ``TILE_FEATURES``, the staging plan at the launch's lane count fitting
+    a block, and no launch group of one lane (``MAX_LANES`` lanes a
+    launch); lane-major (the reference's vmap layout) elsewhere."""
+    cap = pd_kernel.MAX_LANES
+    if (device.type != "cuda" or n > pd_kernel.TILE_FEATURES or lanes < 2
+            or lanes % cap == 1):
+        return False
+    kind = pd_kernel.loss_kind(loss)
+    return kind is not None and pd_kernel.plan_variant(
+        kind, n, num_samples, min(lanes, cap)) == "staged"
+
+
+def _lane_zeros(lead: tuple, rows: int, n: int, dtype: torch.dtype,
+                device, lane_minor: bool = False) -> torch.Tensor:
+    """Zeros of shape lead + (rows, n); with ``lane_minor`` (lead = (L,))
+    an (L, rows, n) view of (rows, L, n) storage."""
+    if not lane_minor:
+        return torch.zeros(lead + (rows, n), dtype=dtype, device=device)
+    return torch.zeros((rows,) + lead + (n,), dtype=dtype,
+                       device=device).transpose(0, 1)
+
+
 def _fused_setup(graph, data, lam, w_true, *, loss, reg, layout,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 lane_minor: bool = False):
     """Per-solve prep for the fused engine: layout padding, stepsizes,
     windowed prox parameters, and the metric fn (original node order,
     the dense engine's formulas, in f32).
@@ -511,7 +540,9 @@ def _fused_setup(graph, data, lam, w_true, *, loss, reg, layout,
     to it, while tau, sigma, la and src/dst stay f32 or int.  ``lam`` a
     sequence of host floats is a lambda path: la is then (L, nb*EB, 1),
     one column per lane, and the metric fn maps (L, rows, n) to per-lane
-    (L,) traces; everything else is shared by the lanes.
+    (L,) traces; everything else is shared by the lanes.  ``lane_minor``
+    lays la out lane-minor, (L, nb*EB, 1) strides (1, L, 1), as the
+    path's state (:func:`_fused_lane_minor`).
     """
     lt = layout
     # the paper-eq.-13 stepsizes come from the one source of truth
@@ -542,12 +573,17 @@ def _fused_setup(graph, data, lam, w_true, *, loss, reg, layout,
         metrics_fn = make_metrics_fn(loss, reg, graph, data, lam, w_true)
     else:
         lams = lane_values(lam, graph.device)
-        la2 = (lams[:, None] * lt.weights)[..., None]
+        if lane_minor:
+            la2 = (lt.weights[:, None] * lams).T[..., None]
+        else:
+            la2 = (lams[:, None] * lt.weights)[..., None]
         metrics_fn = lane_metrics(loss, reg, graph.src, graph.dst,
                                   graph.weights, data, lams, w_true)
 
     def metrics(w_l):
-        return metrics_fn(w_l[..., node_inv, :].to(torch.float32))
+        # the state's gathered copy, lane-major whatever the state's layout
+        return metrics_fn(w_l[..., node_inv, :].to(torch.float32)
+                          .contiguous())
 
     return (params_s, pkeys, tau_l, tau_s, sig_l, sig2, src2, dst2, la2,
             metrics)
@@ -601,16 +637,19 @@ def _fused_run_iters(lt, inc_e, inc_s, params_s, pkeys, tau_s, src2, dst2,
     return run_iters
 
 
-def _fused_stores(lt, w0_l, u0_l, dtype):
+def _fused_stores(lt, w0_l, u0_l, dtype, lane_minor: bool = False):
     """The padded (w_store, u_store) of a solve in the storage dtype; with
-    a leading lane axis, every lane's."""
-    eb, n = lt.block_edges, w0_l.shape[-1]
+    a leading lane axis, every lane's (``lane_minor``: views of (rows, L,
+    n) storage, :func:`_fused_lane_minor`)."""
+    eb, n, dev = lt.block_edges, w0_l.shape[-1], w0_l.device
     lead = tuple(w0_l.shape[:-2])
-    zeros = u0_l.new_zeros
-    w_store0 = torch.cat([w0_l, zeros(lead + ((lt.kn - 1) * lt.block_nodes,
-                                              n))], dim=-2).to(dtype)
-    u_store0 = torch.cat([zeros(lead + (lt.klo * eb, n)), u0_l,
-                          zeros(lead + (lt.khi * eb, n))], dim=-2).to(dtype)
+    lo = lt.klo * eb
+    w_store0 = _lane_zeros(lead, lt.nodes_pad + (lt.kn - 1) * lt.block_nodes,
+                           n, dtype, dev, lane_minor)
+    u_store0 = _lane_zeros(lead, lo + lt.edges_pad + lt.khi * eb, n, dtype,
+                           dev, lane_minor)
+    w_store0[..., :lt.nodes_pad, :] = w0_l
+    u_store0[..., lo:lo + lt.edges_pad, :] = u0_l
     return w_store0, u_store0
 
 
@@ -625,21 +664,24 @@ def _owned(lt, state):
 def _fused_scan_impl(problem: Problem, w0_l, u0_l, w_true, *, layout,
                      num_iters: int, rho: float, metric_every: int,
                      record_residual: bool = False,
-                     dtype: torch.dtype = torch.float32, lams=None):
+                     dtype: torch.dtype = torch.float32, lams=None,
+                     lane_minor: bool = False):
     """The fused engine: loop the fused PD step over the edge-blocked
     layout, recording metrics on the cadence.  A single-block layout
     runs each metric block as one launch (``iters=metric_every``).
     ``dtype`` is the storage policy of the state and the prox
     parameters.  ``lams`` (host floats) runs a lambda path: the state
     then carries a lane axis, every launch advances all lanes, and the
-    traces are (T, L).  Returns owned-layout ``(w_l, u_l, obj, mse,
-    res)``, the state in the storage dtype."""
+    traces are (T, L); ``lane_minor`` lays the lanes' state and la out
+    lane-minor (:func:`_fused_lane_minor`).  Returns owned-layout ``(w_l,
+    u_l, obj, mse, res)``, the state in the storage dtype."""
     lt = layout
     (params_s, pkeys, tau_l, tau_s, sig_l, sig2, src2, dst2, la2,
      metrics) = _fused_setup(problem.graph, problem.data,
                              problem.lam if lams is None else lams,
                              w_true, loss=problem.loss,
-                             reg=problem.regularizer, layout=lt, dtype=dtype)
+                             reg=problem.regularizer, layout=lt, dtype=dtype,
+                             lane_minor=lane_minor)
 
     run_iters = _fused_run_iters(
         lt, lt.pad_node_store(lt.inc_edges), lt.pad_node_store(lt.inc_signs),
@@ -663,7 +705,8 @@ def _fused_scan_impl(problem: Problem, w0_l, u0_l, w_true, *, layout,
 
     state, traces = scan_solve(
         run_block, lambda s: metrics(s[0][..., :lt.nodes_pad, :]),
-        _fused_stores(lt, w0_l, u0_l, dtype), num_iters=num_iters,
+        _fused_stores(lt, w0_l, u0_l, dtype, lane_minor),
+        num_iters=num_iters,
         metric_every=metric_every, multi_iter_block=(lt.num_blocks == 1),
         residual_fn=residual_fn)
     if record_residual:
@@ -727,14 +770,14 @@ def _solve_fused(problem: Problem, config: SolverConfig, *, w0=None,
     lt = _graph_layout(problem.graph)
     n, dev = problem.num_features, problem.device
     lead = () if lams is None else (len(lams),)
+    minor = lams is not None and _fused_lane_minor(
+        problem.loss, n, problem.data.x.shape[-2], len(lams), dev)
 
-    w0_l = torch.zeros(lead + (lt.nodes_pad, n), dtype=torch.float32,
-                       device=dev)
+    w0_l = _lane_zeros(lead, lt.nodes_pad, n, torch.float32, dev, minor)
     if w0 is not None:
         w0_l[...] = gather_padded(torch.as_tensor(
             w0, dtype=torch.float32, device=dev), lt.node_perm)
-    u0_l = torch.zeros(lead + (lt.edges_pad, n), dtype=torch.float32,
-                       device=dev)
+    u0_l = _lane_zeros(lead, lt.edges_pad, n, torch.float32, dev, minor)
     edge_pos = lt.edge_pos.long()
     if u0 is not None:
         u0_l[..., edge_pos, :] = (torch.as_tensor(u0, dtype=torch.float32,
@@ -746,7 +789,8 @@ def _solve_fused(problem: Problem, config: SolverConfig, *, w0=None,
     if config.tol is None or config.num_iters == 0:
         w_l, u_l, obj, mse, res = _fused_scan_impl(
             problem, w0_l, u0_l, w_true,
-            record_residual=config.record_residual, lams=lams, **run)
+            record_residual=config.record_residual, lams=lams,
+            lane_minor=minor, **run)
         iterations = config.num_iters
     else:
         if lams is not None:

@@ -1,9 +1,9 @@
 // Fused primal-dual step for Hopper: the C entry points, and the squared
 // loss's register-tile instantiations.  The kernel is pd_step_impl.cuh
-// (n <= 16: what it computes, its design and what bounds it) and
-// pd_step_wide.cuh (n > 16); the other variants live in their own
-// translation units (pd_step.cuh) so that kernels/_build.py compiles them
-// in parallel.
+// (n <= 16: what it computes, its design and what bounds it; over lanes
+// pd_step_lanes.cuh) and pd_step_wide.cuh (n > 16); the other variants
+// live in their own translation units (pd_step.cuh) so that
+// kernels/_build.py compiles them in parallel.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -Xcompiler -fPIC,
 // linked with the other sources into one shared library (see
@@ -12,6 +12,7 @@
 
 #include <climits>
 
+#include "pd_step_lanes.cuh"
 #include "pd_step_streamed.cuh"
 #include "pd_step_wide.cuh"
 
@@ -42,7 +43,7 @@ void plan_bytes(int n, int ms, long long lanes, long long* staged,
                       : make_wide_plan<LOSS, false>(a, p, false);
     return;
   }
-  *staged = multi ? make_plan<kTileFeatures, LOSS, true>(a, p, true)
+  *staged = multi ? lane_plan_bytes<LOSS>(a)
                   : make_plan<kTileFeatures, LOSS, false>(a, p, true);
   *streamed = LLONG_MAX;
   if (LOSS == kLogistic) {

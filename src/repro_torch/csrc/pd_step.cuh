@@ -77,11 +77,27 @@ struct PdArgs {
   // the register-tile streamed variant's scratch (pd_step_streamed.cuh),
   // 1 + iters + num_nodes ints zeroed by the caller; null elsewhere
   int* work;
+  // the row strides (in elements) of the lane-stacked arrays and z's lane
+  // stride, read by the register tile's lane kernel (pd_step_lanes.cuh)
+  // alone: lane-major rows are n apart (la's 1) with the lane strides
+  // above, lane-minor rows num_lanes * n apart (la's num_lanes) with lane
+  // stride n (la's 1).  Every other kernel reads lane-major state with
+  // rows n apart and z's lane stride num_nodes * n.
+  long long w_in_row;
+  long long u_in_row;
+  long long w_out_row;
+  long long u_out_row;
+  long long wc_row;
+  long long uc_row;
+  long long la_row;
+  long long z_row;
+  long long z_lane;
 };
 
 // The variants, each loss's in its own translation unit so that
 // kernels/_build.py compiles them in parallel: the register-tile kernel
-// (n <= 16) with staged prox parameters per loss, the logistic loss's
+// (n <= 16) with staged prox parameters per loss (one lane:
+// pd_step_impl.cuh; more: pd_step_lanes.cuh), the logistic loss's
 // streamed one (pd_step_streamed.cuh: a labeled node's samples split over
 // a block, staged once a launch step), and the wide kernel
 // (n > 16) staged or streamed (the logistic loss's in one unit per

@@ -76,20 +76,9 @@
 //     aligned; otherwise element by element.
 //   * Edge phase: one thread per owned edge, grid-stride.
 //   * Lanes (num_lanes > 1: a lambda path, the grid axis jax.vmap adds to
-//     the reference kernel).  L problems share the layout, the prox
-//     parameters, tau and sigma; each has its own w, u, la, outputs,
-//     carry, z and residual slot.  One cooperative launch covers them all,
-//     the lanes as more work of the same grid (a cooperative grid is
-//     capped by residency, so more blocks would not launch): each node
-//     tile's slots, parameters and in-edge ids are staged once and serve
-//     every lane in turn, and the edge phase reads an edge's columns once
-//     and updates it in every lane.  The lane loop stays outside the
-//     per-node register tile, so registers do not grow with L; the tile
-//     and the gather's lanes do not depend on L, so lane l sums in the
-//     order a one-lane launch on its inputs does (bit-identical).  Each
-//     lane's residual is a warp max into a shared slot, then one
-//     atomicMax per lane and block.  One lane runs the single-problem
-//     instantiation (MULTI false), unchanged.
+//     the reference kernel) run pd_step_lanes.cuh's kernel, on this
+//     file's tile staging, gather order, prox and row updates; each lane
+//     is bit-identical to a one-lane launch of this kernel on its inputs.
 //
 // Stop word.  A tolerance solve keeps a device flag (`active`) that it
 // clears once a block's residual is <= tol; its graph engine runs no
@@ -168,8 +157,9 @@ struct Plan {
   int elems[6];      // elements per node of each prox parameter
   int stride[6];     // shared floats per node of each (elems | 1)
   int offset[6];     // shared float offset of each
-  // lanes > 1 only (0 otherwise): a tile's in-edge ids staged once for
-  // every lane (up to ids_cap of them), and the lanes' residual maxima
+  // over lanes only (0 otherwise): a tile's in-edge ids staged once for
+  // every lane or chunk of lanes (up to ids_cap of them), and the lanes'
+  // residual maxima
   int ids_cap;
   int ids_offset;    // shared float offset of the staged ids
   int res_offset;    // shared float offset of num_lanes residual maxima
@@ -540,40 +530,38 @@ __device__ __forceinline__ void prox(const PdArgs& a,
   }
 }
 
-// The node update of node i (thread t of its tile) after the tile's D^T u
-// is in shared memory: v = w - tau D^T u, the prox (parameters staged),
-// z = 2 w+ - w and the KM step, written to the carry or the outputs.
-// Returns the node's residual term (0 without compute_residual).
-// Pointers are the lane's.
+// The node update of one node once its state row w is loaded and its D^T
+// u row d (in shared memory) summed: v = w - tau D^T u, the prox
+// (parameter rows sp, staged; with run_prox false w+ = v, which is what
+// the lasso's and logistic's prox return for an unlabeled node, bit for
+// bit), z = 2 w+ - w and the KM step, written to the carry or the outputs
+// (row pointers the node's and lane's).  Returns the node's residual term
+// (0 without compute_residual).
 template <int MAXN, int LOSS, typename T>
-__device__ __forceinline__ float node_update(
-    const PdArgs& a, const Plan& p, const float* smem, bool vec,
-    bool in_carry, bool out_carry, bool rounded_residual, long long i,
-    int t, const T* w_in, float* w_carry, float* z, T* w_out) {
+__device__ __forceinline__ float node_math(
+    const PdArgs& a, bool vec, bool out_carry, bool rounded_residual,
+    bool run_prox, float tt, const float* d, const float* const* sp,
+    const float (&w)[MAXN], float* w_carry, float* z, T* w_out) {
   const int n = a.n;
-  float w[MAXN], v[MAXN], wp[MAXN], zr[MAXN], wn[MAXN];
-  if (in_carry)
-    load_row<MAXN>(w_carry + i * n, n, vec, w);
-  else
-    load_row<MAXN>(w_in + i * n, n, vec, w);
-  const float tt = a.tau[i];
+  float v[MAXN], wp[MAXN], zr[MAXN], wn[MAXN];
 #pragma unroll
-  for (int k = 0; k < MAXN; ++k)
-    v[k] = k < n ? w[k] - tt * smem[p.doffset + t * p.dstride + k] : 0.0f;
-  const float* sp[6];
+  for (int k = 0; k < MAXN; ++k) v[k] = k < n ? w[k] - tt * d[k] : 0.0f;
+  if (run_prox) {
+    prox<MAXN, LOSS>(a, sp, v, wp);
+  } else {
 #pragma unroll
-  for (int k = 0; k < 6; ++k) sp[k] = smem + p.offset[k] + t * p.stride[k];
-  prox<MAXN, LOSS>(a, sp, v, wp);
+    for (int k = 0; k < MAXN; ++k) wp[k] = v[k];
+  }
 #pragma unroll
   for (int j = 0; j < MAXN; ++j) {
     zr[j] = 2.0f * wp[j] - w[j];
     wn[j] = a.relax ? w[j] + a.rho * (wp[j] - w[j]) : wp[j];
   }
-  store_row<MAXN>(z + i * n, n, vec, zr);
+  store_row<MAXN>(z, n, vec, zr);
   if (out_carry) {
-    store_row<MAXN>(w_carry + i * n, n, vec, wn);
+    store_row<MAXN>(w_carry, n, vec, wn);
   } else {
-    store_row<MAXN>(w_out + i * n, n, vec, wn);
+    store_row<MAXN>(w_out, n, vec, wn);
     if (rounded_residual) {
 #pragma unroll
       for (int j = 0; j < MAXN; ++j) wn[j] = rounded<T>(wn[j]);
@@ -588,24 +576,39 @@ __device__ __forceinline__ float node_update(
   return r;
 }
 
-// The edge update of owned edge e (src s, dst d, dual step sg, level l):
-// D(2w+ - w), the dual resolvent and the KM step, written to the carry or
-// the outputs.  Returns the edge's residual term.  Pointers are the lane's.
-template <int MAXN, typename T>
-__device__ __forceinline__ float edge_update(
-    const PdArgs& a, bool vec, bool in_carry, bool out_carry,
-    bool rounded_residual, long long u_off, long long e, long long s,
-    long long d, float sg, float l, const T* u_in, float* u_carry,
-    const float* z, T* u_out) {
+// The node update of node i (thread t of its tile) of a one-lane launch:
+// its state row loaded (rows n apart), its D^T u and parameter rows staged
+// at t, then node_math.
+template <int MAXN, int LOSS, typename T>
+__device__ __forceinline__ float node_update(
+    const PdArgs& a, const Plan& p, const float* smem, bool vec,
+    bool in_carry, bool out_carry, bool rounded_residual, long long i,
+    int t, const T* w_in, float* w_carry, float* z, T* w_out) {
   const int n = a.n;
-  const float scale = l / (l + sg);
-  float u0[MAXN], zs[MAXN], zd[MAXN], y[MAXN];
+  float w[MAXN];
   if (in_carry)
-    load_row<MAXN>(u_carry + e * n, n, vec, u0);
+    load_row<MAXN>(w_carry + i * n, n, vec, w);
   else
-    load_row<MAXN>(u_in + (u_off + e) * n, n, vec, u0);
-  load_row<MAXN>(z + s * n, n, vec, zs);
-  load_row<MAXN>(z + d * n, n, vec, zd);
+    load_row<MAXN>(w_in + i * n, n, vec, w);
+  const float* sp[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) sp[k] = smem + p.offset[k] + t * p.stride[k];
+  return node_math<MAXN, LOSS, T>(
+      a, vec, out_carry, rounded_residual, true, a.tau[i],
+      smem + p.doffset + t * p.dstride, sp, w, w_carry + i * n, z + i * n,
+      w_out + i * n);
+}
+
+// The dual step of one owned edge (dual step sg, level l) from its u row
+// u0 and the z rows of its ends (zs, zd): D(2w+ - w), the dual resolvent
+// and the KM step, into y.
+template <int MAXN>
+__device__ __forceinline__ void edge_y(const PdArgs& a, float sg, float l,
+                                       const float (&u0)[MAXN],
+                                       const float (&zs)[MAXN],
+                                       const float (&zd)[MAXN],
+                                       float (&y)[MAXN]) {
+  const float scale = l / (l + sg);
 #pragma unroll
   for (int k = 0; k < MAXN; ++k) {
     const float x = u0[k] + sg * (zs[k] - zd[k]);
@@ -617,22 +620,61 @@ __device__ __forceinline__ float edge_update(
     }
     y[k] = yk;
   }
-  if (out_carry) {
-    store_row<MAXN>(u_carry + e * n, n, vec, y);
-  } else {
-    store_row<MAXN>(u_out + e * n, n, vec, y);
-    if (rounded_residual) {
-#pragma unroll
-      for (int k = 0; k < MAXN; ++k) y[k] = rounded<T>(y[k]);
-    }
-  }
+}
+
+// An edge's residual term from its new row y (rounded to the storage type
+// first where `round`, as the stored output reads back) and its old u0.
+template <int MAXN, typename T>
+__device__ __forceinline__ float edge_residual(const PdArgs& a, bool round,
+                                               float sg,
+                                               const float (&u0)[MAXN],
+                                               const float (&y)[MAXN]) {
   float r = 0.0f;
   if (a.compute_residual) {
 #pragma unroll
     for (int k = 0; k < MAXN; ++k)
-      if (k < n) r = fmaxf(r, fabsf(y[k] - u0[k]) / sg);
+      if (k < a.n)
+        r = fmaxf(r, fabsf((round ? rounded<T>(y[k]) : y[k]) - u0[k]) / sg);
   }
   return r;
+}
+
+// edge_y, written to the carry or the outputs (row pointers the edge's
+// and lane's).  Returns the edge's residual term.
+template <int MAXN, typename T>
+__device__ __forceinline__ float edge_math(
+    const PdArgs& a, bool vec, bool out_carry, bool rounded_residual,
+    float sg, float l, const float (&u0)[MAXN], const float (&zs)[MAXN],
+    const float (&zd)[MAXN], float* u_carry, T* u_out) {
+  float y[MAXN];
+  edge_y<MAXN>(a, sg, l, u0, zs, zd, y);
+  if (out_carry)
+    store_row<MAXN>(u_carry, a.n, vec, y);
+  else
+    store_row<MAXN>(u_out, a.n, vec, y);
+  return edge_residual<MAXN, T>(a, !out_carry && rounded_residual, sg, u0,
+                                y);
+}
+
+// The edge update of owned edge e (src s, dst d) of lane-major state,
+// rows n apart: its u row (or carry) and the z rows of its ends loaded,
+// then edge_math.  Pointers are the lane's.
+template <int MAXN, typename T>
+__device__ __forceinline__ float edge_update(
+    const PdArgs& a, bool vec, bool in_carry, bool out_carry,
+    bool rounded_residual, long long u_off, long long e, long long s,
+    long long d, float sg, float l, const T* u_in, float* u_carry,
+    const float* z, T* u_out) {
+  const int n = a.n;
+  float u0[MAXN], zs[MAXN], zd[MAXN];
+  if (in_carry)
+    load_row<MAXN>(u_carry + e * n, n, vec, u0);
+  else
+    load_row<MAXN>(u_in + (u_off + e) * n, n, vec, u0);
+  load_row<MAXN>(z + s * n, n, vec, zs);
+  load_row<MAXN>(z + d * n, n, vec, zd);
+  return edge_math<MAXN, T>(a, vec, out_carry, rounded_residual, sg, l, u0,
+                            zs, zd, u_carry + e * n, u_out + e * n);
 }
 
 // The warp's max of r into the shared slot (every lane of the warp calls
@@ -656,30 +698,21 @@ __device__ __forceinline__ float warp_sum(float x) {
 // Resident blocks per SM the register budget must allow.  The squared
 // loss's node phase is latency-bound gathers, which occupancy hides (5
 // blocks: 48 registers at n <= 2); the lasso's and logistic's proxes
-// spill under such a cap and lose more than the gathers gain.  The lane
-// loop needs a few registers more (its lane offsets): for the squared
-// loss one block fewer, as spilling in the lane loop costs more than the
-// block (measured at 1M, PERF.md); the lasso's lane kernel at n <= 4
-// lands just past 3 blocks' registers (88), and the cap that restores
-// the third block pays off (PERF.md).
-template <int MAXN, int LOSS, bool MULTI> constexpr int min_blocks() {
-  if (LOSS == kSquared)
-    return MAXN <= 2 ? 5 - MULTI : (MAXN <= 4 ? 4 - MULTI : 1);
-  return LOSS == kLasso && MULTI && MAXN <= 4 ? 3 : 1;
+// spill under such a cap and lose more than the gathers gain.
+template <int MAXN, int LOSS> constexpr int min_blocks() {
+  if (LOSS == kSquared) return MAXN <= 2 ? 5 : (MAXN <= 4 ? 4 : 1);
+  return 1;
 }
 
-// MULTI: a launch over num_lanes > 1 lanes.  The one-lane instantiation
-// (MULTI false) is the kernel of a single problem: its lane loops run once
-// with every lane offset 0, and its residual is one register max.
-template <int MAXN, int LOSS, typename T, bool MULTI>
-__global__ void __launch_bounds__(kThreads, min_blocks<MAXN, LOSS, MULTI>())
+// The kernel of a single problem (one lane; pd_step_lanes.cuh runs more).
+template <int MAXN, int LOSS, typename T>
+__global__ void __launch_bounds__(kThreads, min_blocks<MAXN, LOSS>())
 fused_pd_step_kernel(PdArgs a, Plan p) {
   // the stop word: a stopped tol solve writes nothing (uniform: every
   // thread returns before the first grid sync)
   if (a.active != nullptr && *a.active == 0) return;
   cg::grid_group grid = cg::this_grid();
-  // the tile: node slots, D^T u, the staged parameters, then (lanes > 1)
-  // the staged in-edge ids and the lanes' residual maxima
+  // the tile: node slots, D^T u, the staged parameters
   extern __shared__ __align__(16) float smem[];
   const int n = a.n;
   const bool vec = p.vec != 0;
@@ -692,14 +725,6 @@ fused_pd_step_kernel(PdArgs a, Plan p) {
   const bool rounded_residual = a.iters == 1;
   const int lanes = p.lanes, lane = threadIdx.x & (lanes - 1);
   const int groups = kThreads / lanes;
-  const int num_lanes = MULTI ? (int)a.num_lanes : 1;
-  const long long z_lane = a.num_nodes * n;
-  float* lane_res = smem + p.res_offset;
-  if constexpr (MULTI) {
-    // read only after a __syncthreads or grid sync below
-    for (int l = threadIdx.x; l < num_lanes; l += kThreads)
-      lane_res[l] = 0.0f;
-  }
   float rmax = 0.0f;
 
   for (int it = 0; it < a.iters; ++it) {
@@ -715,123 +740,63 @@ fused_pd_step_kernel(PdArgs a, Plan p) {
       const long long left = a.num_nodes - node0;
       const int cnt = left < p.tile ? (int)left : p.tile;
       stage_tile<T>(a, p, smem, node0, cnt);
-      const int* ids = a.in_ids;
-      int ids_base = 0;
-      if constexpr (MULTI) {
-        // the tile's in-edge ids once for every lane, when they fit
-        const int first = a.in_ptr[node0];
-        const int count = a.in_ptr[node0 + cnt] - first;
-        if (count <= p.ids_cap) {
-          int* staged = reinterpret_cast<int*>(smem + p.ids_offset);
-          for (int j = threadIdx.x; j < count; j += kThreads)
-            staged[j] = a.in_ids[first + j];
-          ids = staged;
-          ids_base = first;
+      __syncthreads();
+      // warp-uniform trip count: p.tile is a multiple of a warp's
+      // groups; two nodes' gathers in flight per group
+#pragma unroll 2
+      for (int q = threadIdx.x / lanes; q < p.tile; q += groups) {
+        const int4 m = reinterpret_cast<const int4*>(smem)[q];
+        float acc[MAXN];
+        if (in_carry)
+          gather_share<MAXN>(a, a.in_ids, 0, a.u_carry, u_rows, vec, m,
+                             lane, lanes, acc);
+        else
+          gather_share<MAXN>(a, a.in_ids, 0, u_store, u_rows, vec, m, lane,
+                             lanes, acc);
+        for (int off = lanes >> 1; off > 0; off >>= 1) {
+#pragma unroll
+          for (int k = 0; k < MAXN; ++k)
+            if (k < n) acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
+        }
+        if (lane == 0 && q < cnt) {
+#pragma unroll
+          for (int k = 0; k < MAXN; ++k)
+            if (k < n) smem[p.doffset + q * p.dstride + k] = acc[k];
         }
       }
       __syncthreads();
-      // the staged slots, ids and parameters serve every lane in turn
-      for (int l = 0; l < num_lanes; ++l) {
-        const T* u_l = u_store + l * a.u_in_lane;
-        float* uc_l = a.u_carry + l * a.uc_lane;
-        // warp-uniform trip count: p.tile is a multiple of a warp's
-        // groups; two nodes' gathers in flight per group
-#pragma unroll 2
-        for (int q = threadIdx.x / lanes; q < p.tile; q += groups) {
-          const int4 m = reinterpret_cast<const int4*>(smem)[q];
-          float acc[MAXN];
-          if (in_carry)
-            gather_share<MAXN>(a, ids, ids_base, uc_l, u_rows, vec, m,
-                               lane, lanes, acc);
-          else
-            gather_share<MAXN>(a, ids, ids_base, u_l, u_rows, vec, m, lane,
-                               lanes, acc);
-          for (int off = lanes >> 1; off > 0; off >>= 1) {
-#pragma unroll
-            for (int k = 0; k < MAXN; ++k)
-              if (k < n) acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
-          }
-          if (lane == 0 && q < cnt) {
-#pragma unroll
-            for (int k = 0; k < MAXN; ++k)
-              if (k < n) smem[p.doffset + q * p.dstride + k] = acc[k];
-          }
-        }
-        __syncthreads();
-        const int t = threadIdx.x;
-        float r = 0.0f;
-        if (t < cnt)
-          r = node_update<MAXN, LOSS, T>(
-              a, p, smem, vec, in_carry, out_carry, rounded_residual,
-              node0 + t, t, w_store + l * a.w_in_lane,
-              a.w_carry + l * a.wc_lane, a.z + l * z_lane,
-              w_out + l * a.w_out_lane);
-        if constexpr (MULTI) {
-          if (a.compute_residual) warp_max_into(r, lane_res + l);
-        } else {
-          rmax = fmaxf(rmax, r);
-        }
-        __syncthreads();  // the next lane or tile overwrites shared memory
-      }
+      const int t = threadIdx.x;
+      if (t < cnt)
+        rmax = fmaxf(rmax, node_update<MAXN, LOSS, T>(
+                               a, p, smem, vec, in_carry, out_carry,
+                               rounded_residual, node0 + t, t, w_store,
+                               a.w_carry, a.z, w_out));
+      __syncthreads();  // the next tile overwrites shared memory
     }
     grid.sync();
 
     // ---- edge phase: D(2w+ - w), dual resolvent, KM -------------------
-    if constexpr (MULTI) {
-      // the edge's columns once for every lane; a warp-uniform trip
-      // count, since every lane's residual is a warp max
-      for (long long e0 = (long long)blockIdx.x * blockDim.x;
-           e0 < a.num_edges; e0 += stride) {
-        const long long e = e0 + threadIdx.x;
-        const bool live = e < a.num_edges;
-        long long s = 0, d = 0;
-        float sg = 1.0f;
-        if (live) {
-          s = a.src[e];
-          d = a.dst[e];
-          sg = a.sigma[e];
-        }
-        for (int l = 0; l < num_lanes; ++l) {
-          float r = 0.0f;
-          if (live)
-            r = edge_update<MAXN, T>(
-                a, vec, in_carry, out_carry, rounded_residual, u_off, e, s,
-                d, sg, a.la[l * a.la_lane + e], u_store + l * a.u_in_lane,
-                a.u_carry + l * a.uc_lane, a.z + l * z_lane,
-                u_out + l * a.u_out_lane);
-          if (a.compute_residual) warp_max_into(r, lane_res + l);
-        }
-      }
-    } else {
-      for (long long e = tid0; e < a.num_edges; e += stride) {
-        const float r = edge_update<MAXN, T>(
-            a, vec, in_carry, out_carry, rounded_residual, u_off, e,
-            a.src[e], a.dst[e], a.sigma[e], a.la[e], u_store, a.u_carry,
-            a.z, u_out);
-        rmax = fmaxf(rmax, r);
-      }
+    for (long long e = tid0; e < a.num_edges; e += stride) {
+      const float r = edge_update<MAXN, T>(
+          a, vec, in_carry, out_carry, rounded_residual, u_off, e,
+          a.src[e], a.dst[e], a.sigma[e], a.la[e], u_store, a.u_carry,
+          a.z, u_out);
+      rmax = fmaxf(rmax, r);
     }
     if (it + 1 < a.iters) grid.sync();
   }
 
   if (a.compute_residual) {
-    if constexpr (MULTI) {
-      __syncthreads();
-      for (int l = threadIdx.x; l < num_lanes; l += kThreads)
-        atomicMax(reinterpret_cast<int*>(a.res + l),
-                  __float_as_int(lane_res[l]));
-    } else {
-      for (int off = 16; off > 0; off >>= 1)
-        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
-      __shared__ float warp_max[kWarps];
-      const int wl = threadIdx.x & 31, warp = threadIdx.x >> 5;
-      if (wl == 0) warp_max[warp] = rmax;
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        float m = 0.0f;
-        for (int k = 0; k < kWarps; ++k) m = fmaxf(m, warp_max[k]);
-        atomicMax(reinterpret_cast<int*>(a.res), __float_as_int(m));
-      }
+    for (int off = 16; off > 0; off >>= 1)
+      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
+    __shared__ float warp_max[kWarps];
+    const int wl = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (wl == 0) warp_max[warp] = rmax;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float m = 0.0f;
+      for (int k = 0; k < kWarps; ++k) m = fmaxf(m, warp_max[k]);
+      atomicMax(reinterpret_cast<int*>(a.res), __float_as_int(m));
     }
   }
   // counted last, where the step's registers are free (the squared
@@ -943,11 +908,13 @@ long long make_plan(const PdArgs& a, Plan& p, bool staged = true) {
 }
 
 // One cooperative launch of `kernel` with `plan` and `smem` dynamic
-// shared bytes: the grid is the larger of the node tiles and the edge
-// blocks, capped by the blocks the occupancy query lets reside.
-template <typename Kernel>
+// shared bytes: the grid is the larger of the node phase's `tiles` and
+// the edge phase's `edge_blocks`, capped by the blocks the occupancy
+// query lets reside.
+template <typename Kernel, typename P>
 cudaError_t cooperative_launch(Kernel kernel, const PdArgs& args,
-                               const Plan& plan, long long smem,
+                               const P& plan, long long tiles,
+                               long long edge_blocks, long long smem,
                                cudaStream_t stream) {
   cudaError_t err;
   if (smem > kSmemDefault) {  // opt in past the default per-block limit
@@ -965,14 +932,12 @@ cudaError_t cooperative_launch(Kernel kernel, const PdArgs& args,
                                                       kThreads, (size_t)smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorLaunchOutOfResources;
-  const long long edge_blocks = (args.num_edges + kThreads - 1) / kThreads;
-  long long blocks =
-      plan.num_tiles > edge_blocks ? plan.num_tiles : edge_blocks;
+  long long blocks = tiles > edge_blocks ? tiles : edge_blocks;
   const long long resident = (long long)per_sm * sms;
   if (blocks > resident) blocks = resident;
   if (blocks < 1) blocks = 1;
   PdArgs local = args;
-  Plan lplan = plan;
+  P lplan = plan;
   void* kargs[] = {&local, &lplan};
   err = cudaLaunchCooperativeKernel((void*)kernel, dim3((unsigned)blocks),
                                     dim3(kThreads), kargs, (size_t)smem,
@@ -981,38 +946,32 @@ cudaError_t cooperative_launch(Kernel kernel, const PdArgs& args,
   return cudaGetLastError();
 }
 
-template <int MAXN, int LOSS, typename T, bool MULTI>
+// The same with the plan's node tiles and an edge a thread.
+template <typename Kernel>
+cudaError_t cooperative_launch(Kernel kernel, const PdArgs& args,
+                               const Plan& plan, long long smem,
+                               cudaStream_t stream) {
+  return cooperative_launch(kernel, args, plan, plan.num_tiles,
+                            (args.num_edges + kThreads - 1) / kThreads,
+                            smem, stream);
+}
+
+template <int MAXN, int LOSS, typename T>
 cudaError_t launch(const PdArgs& args, cudaStream_t stream) {
   Plan plan;
-  const long long smem = make_plan<MAXN, LOSS, MULTI>(args, plan);
+  const long long smem = make_plan<MAXN, LOSS, false>(args, plan);
   if (smem > kSmemMax) return cudaErrorInvalidValue;
-  return cooperative_launch(fused_pd_step_kernel<MAXN, LOSS, T, MULTI>,
-                            args, plan, smem, stream);
+  return cooperative_launch(fused_pd_step_kernel<MAXN, LOSS, T>, args,
+                            plan, smem, stream);
 }
 
-// The register tile and storage type of one loss's launch.
-template <int LOSS, typename T, bool MULTI>
-cudaError_t launch_width(const PdArgs& a, cudaStream_t s) {
-  if (a.n <= 2) return launch<2, LOSS, T, MULTI>(a, s);
-  if (a.n <= 4) return launch<4, LOSS, T, MULTI>(a, s);
-  if (a.n <= 8) return launch<8, LOSS, T, MULTI>(a, s);
-  if (a.n <= kTileFeatures) return launch<16, LOSS, T, MULTI>(a, s);
-  return cudaErrorInvalidValue;
-}
-
-// One lane runs the single-problem kernel; more run the lane kernel.
+// The register tile and storage type of one loss's one-lane launch.
 template <int LOSS, typename T>
-cudaError_t launch_lanes(const PdArgs& a, cudaStream_t s) {
-  if (a.num_lanes == 1) return launch_width<LOSS, T, false>(a, s);
-  return launch_width<LOSS, T, true>(a, s);
-}
-
-// The staged register-tile variants (n <= kTileFeatures) of one loss.
-template <int LOSS>
-cudaError_t dispatch(const PdArgs& a, cudaStream_t s) {
-  if (a.n < 1 || a.num_lanes < 1) return cudaErrorInvalidValue;
-  if (a.storage == kF32) return launch_lanes<LOSS, float>(a, s);
-  if (a.storage == kBF16) return launch_lanes<LOSS, __nv_bfloat16>(a, s);
+cudaError_t launch_width(const PdArgs& a, cudaStream_t s) {
+  if (a.n <= 2) return launch<2, LOSS, T>(a, s);
+  if (a.n <= 4) return launch<4, LOSS, T>(a, s);
+  if (a.n <= 8) return launch<8, LOSS, T>(a, s);
+  if (a.n <= kTileFeatures) return launch<16, LOSS, T>(a, s);
   return cudaErrorInvalidValue;
 }
 

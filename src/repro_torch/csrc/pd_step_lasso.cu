@@ -1,8 +1,9 @@
 // Fused primal-dual step for Hopper: the lasso loss's instantiations (ISTA
-// prox in the node phase; see pd_step_impl.cuh).  Compiled on its own so
-// that kernels/_build.py builds the three losses in parallel.
+// prox in the node phase; see pd_step_impl.cuh and pd_step_lanes.cuh).
+// Compiled on its own so that kernels/_build.py builds the three losses in
+// parallel.
 
-#include "pd_step_impl.cuh"
+#include "pd_step_lanes.cuh"
 
 namespace repro_pd {
 

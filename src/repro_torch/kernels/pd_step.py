@@ -38,7 +38,14 @@ at import.
 A leading lane axis (``w_store`` (L, rows, n), ``u_store`` (L, urows,
 n), ``la`` (L, nb*EB, 1): L problems on one layout with one set of prox
 parameters, a lambda path) runs in the same single launch; the
-reference gets that axis from ``jax.vmap``.
+reference gets that axis from ``jax.vmap``.  Each lane-stacked tensor
+may be lane-major (each lane's rows contiguous, lanes apart) or, on the
+register tile's lane kernel (``csrc/pd_step_lanes.cuh``: more than one
+lane, n <= ``TILE_FEATURES``, parameters staged), lane-minor: an (L,
+rows, n) view of (rows, L, n) storage, so one visit to a row reads every
+lane's.  The fused lambda path hands that kernel lane-minor state
+(``api/backends.py:_fused_lane_minor``); every other variant takes
+lane-major state and refuses lane-minor by name.
 
 This wrapper takes CUDA tensors only and raises on anything it does not
 take; ``kernels.ops.pd_step`` sends CPU tensors to the plain version.
@@ -50,7 +57,8 @@ is on.  ``fused_pd_step.launches`` counts the launches,
 (:func:`variant_key`: ``"<loss>/<dtype>"``, with ``"/wide"`` past the
 register tile and ``"/streamed"`` where the parameters are not staged),
 and ``fused_pd_step.lane_launches`` counts those over more than one lane
-by the same key.  A call inside a CUDA-graph capture records the kernel
+by the same key, ``fused_pd_step.lane_minor_launches`` those of them on
+lane-minor state.  A call inside a CUDA-graph capture records the kernel
 and is not counted: the graph's replays run it.  The kernel counts its
 own runs on the card, replays included (``_build.executions``).
 """
@@ -99,6 +107,9 @@ class _PdArgs(ctypes.Structure):
         ("w_out_lane", _I64), ("u_out_lane", _I64), ("wc_lane", _I64),
         ("uc_lane", _I64), ("la_lane", _I64), ("executions", _P),
         ("force_streamed", _I32), ("work", _P),
+        ("w_in_row", _I64), ("u_in_row", _I64), ("w_out_row", _I64),
+        ("u_out_row", _I64), ("wc_row", _I64), ("uc_row", _I64),
+        ("la_row", _I64), ("z_row", _I64), ("z_lane", _I64),
     ]
 
 
@@ -204,31 +215,74 @@ def variant_key(name: str, dtype: torch.dtype, n: int, staged: bool) -> str:
     return key if staged else key + "/streamed"
 
 
+def loss_kind(loss) -> int | None:
+    """The loss kind (``_LOSSES``) of ``loss``, or None where the kernel
+    has no prox for it."""
+    entry = _LOSSES.get(getattr(loss, "name", None))
+    return None if entry is None else entry[0]
+
+
 def kernel_takes(loss, n: int, num_samples: int, lanes: int = 1) -> bool:
     """Whether the kernel runs a launch of ``loss`` at ``n`` features,
     ``num_samples`` samples a node and ``lanes`` lanes in one of its
     variants (:func:`plan_variant`).  A loss the kernel has no prox for
     is not refused here (the wrapper refuses it)."""
-    name = getattr(loss, "name", None)
-    if name not in _LOSSES:
+    kind = loss_kind(loss)
+    if kind is None:
         return True
-    return plan_variant(_LOSSES[name][0], n, num_samples, lanes) is not None
+    return plan_variant(kind, n, num_samples, lanes) is not None
 
 
-def _check_rows(name: str, t: torch.Tensor, shape: tuple,
-                dtype: torch.dtype, device: torch.device) -> None:
-    """Like ``check_tensor``, but a lane-stacked (L, rows, n) output may
-    be a view with any lane stride (the owned rows of lane-stacked
-    stores) as long as each lane's rows are contiguous."""
+def _lane_rows(name: str, t: torch.Tensor, shape: tuple,
+               dtype: torch.dtype, device: torch.device) -> bool:
+    """Like ``check_tensor`` for a tensor that may carry the lane axis:
+    a lane-stacked (L, rows, width) one may be lane-major (each lane's
+    rows contiguous, with any lane stride that keeps lanes apart: the
+    owned rows of lane-stacked stores) or lane-minor (a view of (rows, L,
+    width) storage or of its owned rows: lanes width apart, rows at
+    least L * width apart).  Returns whether it is lane-minor."""
     if t.ndim != 3:
         _check(name, t, shape, dtype, device)
-        return
-    _check(name, t[0], shape[1:], dtype, device)
+        return False
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
-    if t.stride(0) < t.shape[1] * t.shape[2]:
-        raise ValueError(f"{name}: lanes overlap (stride {t.stride()})")
+    lanes, rows, width = shape
+    lane, row, elem = t.stride()
+    if width > 1 and elem != 1:
+        raise ValueError(f"{name}: a row's elements must be contiguous "
+                         f"(stride {t.stride()})")
+    if rows == 1 or row == width:
+        if lanes > 1 and lane < rows * width:
+            raise ValueError(f"{name}: lanes overlap (stride {t.stride()})")
+        return False
+    if (lanes == 1 or lane == width) and row >= lanes * width:
+        return True
+    raise ValueError(f"{name}: lanes overlap or are mis-strided (stride "
+                     f"{t.stride()}): a lane-stacked tensor is lane-major "
+                     f"(rows {width} apart, lanes at least {rows * width}) "
+                     f"or lane-minor (lanes {width} apart, rows at least "
+                     f"{lanes * width})")
+
+
+def _strides(t: torch.Tensor, width: int) -> tuple[int, int]:
+    """(lane stride, row stride) of a tensor of rows of ``width``, in
+    elements; a tensor without the lane axis has lane stride 0."""
+    if t.ndim != 3:
+        return 0, width
+    return t.stride(0), t.stride(1) if t.shape[1] > 1 else width
+
+
+def _lane_minor_rows(shape: tuple, dtype: torch.dtype,
+                     device: torch.device) -> torch.Tensor:
+    """An uninitialized (L, rows, width) lane-minor tensor."""
+    lanes, rows, width = shape
+    return torch.empty((rows, lanes, width), dtype=dtype,
+                       device=device).transpose(0, 1)
 
 
 def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
@@ -299,9 +353,9 @@ def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
     device = w_store.device
     f32, i32 = torch.float32, torch.int32
     rows = (nb + kn - 1) * bv
-    _check("w_store", w_store, lead + (rows, n), store, device)
-    _check("u_store", u_store, lead + ((nb + klo + khi) * eb, n), store,
-           device)
+    minor = [_lane_rows("w_store", w_store, lead + (rows, n), store, device),
+             _lane_rows("u_store", u_store,
+                        lead + ((nb + klo + khi) * eb, n), store, device)]
     params = tuple(params)
     shapes = _param_shapes(kind, rows, n, params)
     if len(params) != len(shapes):
@@ -314,7 +368,7 @@ def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
     for label, t, dt in (("src", src, i32), ("dst", dst, i32),
                          ("sigma", sigma, f32)):
         _check(label, t, (nb * eb, 1), dt, device)
-    _check("la", la, lead + (nb * eb, 1), f32, device)
+    minor.append(_lane_rows("la", la, lead + (nb * eb, 1), f32, device))
     if (not isinstance(incidence, (tuple, list)) or len(incidence) != 3
             or any(t is None for t in incidence)):
         raise ValueError("fused_pd_step reads the compact incidence: pass "
@@ -329,8 +383,10 @@ def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
                          f"{tuple(in_ids.shape)}")
     _check("incidence in_ids", in_ids, tuple(in_ids.shape), i32, device)
     if out is not None:
-        _check_rows("out[0]", out[0], lead + (nb * bv, n), store, device)
-        _check_rows("out[1]", out[1], lead + (nb * eb, n), store, device)
+        minor += [_lane_rows("out[0]", out[0], lead + (nb * bv, n), store,
+                             device),
+                  _lane_rows("out[1]", out[1], lead + (nb * eb, n), store,
+                             device)]
     if active is not None:
         if out is None:
             raise ValueError("active needs out: a stopped launch writes "
@@ -361,18 +417,29 @@ def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
                "n (n + 1) / 2 floats, and four rows of n in one warp's "
                "shared memory" if kind == 2 and n > TILE_FEATURES else "")
             + " (the solver runs such a problem unfused)")
+    # the register tile's lane kernel: the one that takes lane-minor state
+    lane_kernel = (lanes or 1) > 1 and n <= TILE_FEATURES and plan == "staged"
+    if any(minor) and not lane_kernel:
+        raise ValueError(
+            f"fused_pd_step: lane-minor state runs only on the register "
+            f"tile's staged lane kernel (n <= {TILE_FEATURES}, more than one "
+            f"lane); this launch runs "
+            f"{variant_key(name, store, n, plan == 'staged')} over "
+            f"{lanes or 1} lane(s): pass lane-major state")
 
     if out is None:
         out = (torch.empty(lead + (nb * bv, n), dtype=store, device=device),
                torch.empty(lead + (nb * eb, n), dtype=store, device=device))
     w_new, u_new = out
-    z = torch.empty(lead + (nb * bv, n), dtype=f32, device=device)
+    # the wrapper's scratch: lane-minor for the lane kernel
+    scratch = _lane_minor_rows if lane_kernel else torch.empty
+    z = scratch(lead + (nb * bv, n), dtype=f32, device=device)
     res = torch.zeros((lanes or 1,), dtype=f32, device=device)
     if store == f32 or iters == 1:
         carry = (w_new, u_new)          # f32 carry lives in the outputs
     else:
-        carry = (torch.empty(lead + (nb * bv, n), dtype=f32, device=device),
-                 torch.empty(lead + (nb * eb, n), dtype=f32, device=device))
+        carry = (scratch(lead + (nb * bv, n), dtype=f32, device=device),
+                 scratch(lead + (nb * eb, n), dtype=f32, device=device))
 
     # the register-tile streamed variant's scratch: the labeled nodes'
     # count, each iteration's work counter and their list
@@ -380,8 +447,10 @@ def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
     if plan == "streamed" and n <= TILE_FEATURES:
         work = torch.zeros(1 + iters + nb * bv, dtype=i32, device=device)
 
-    def lane_stride(t):
-        return t.stride(0) if lanes is not None else 0
+    state = (w_store, u_store, w_new, u_new, *carry)
+    lane_strides, row_strides = zip(*[_strides(t, n) for t in state])
+    la_lane, la_row = _strides(la, 1)
+    z_lane, z_row = _strides(z, n) if lanes is not None else (nb * bv * n, n)
     args = _PdArgs(
         w_store.data_ptr(), u_store.data_ptr(), in_ptr.data_ptr(),
         in_ids.data_ptr(), out_run.data_ptr(),
@@ -396,9 +465,10 @@ def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
         int(compute_residual), kind, _STORAGE[store], num_samples,
         int(getattr(loss, "num_inner", 0)),
         float(getattr(loss, "alpha", 0.0)), lanes or 1,
-        *map(lane_stride, (w_store, u_store, w_new, u_new, *carry, la)),
+        *lane_strides, la_lane,
         _build.execution_counter("fused_pd_step", device),
-        int(plan == "streamed"), None if work is None else work.data_ptr())
+        int(plan == "streamed"), None if work is None else work.data_ptr(),
+        *row_strides, la_row, z_row, z_lane)
     stream = torch.cuda.current_stream(device).cuda_stream
     with _prof.annotate(_prof.FUSED_STEP), torch.cuda.device(device):
         err = _build.entry("fused_pd_step_launch", _ARGTYPES)(
@@ -411,6 +481,8 @@ def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
         fused_pd_step.variant_launches[variant] += 1
         if (lanes or 1) > 1:
             fused_pd_step.lane_launches[variant] += 1
+            if minor[0]:
+                fused_pd_step.lane_minor_launches[variant] += 1
     if compute_residual:
         return w_new, u_new, res if lanes is not None else res[0]
     return w_new, u_new
@@ -419,3 +491,4 @@ def fused_pd_step(w_store: torch.Tensor, u_store: torch.Tensor,
 fused_pd_step.launches = 0
 fused_pd_step.variant_launches = collections.Counter()
 fused_pd_step.lane_launches = collections.Counter()
+fused_pd_step.lane_minor_launches = collections.Counter()
