@@ -112,6 +112,7 @@ import bisect
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -285,6 +286,30 @@ def cuda_ms(fn, reps: int, copies: int = 1, budget_ms: float = 2000.0
         fn(r % copies)
     end.record()
     end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device milliseconds per call of ``fn()``: ``reps`` calls captured
+    into one CUDA graph (after a warm-up call), the graph's second replay
+    timed with CUDA events.  Without the host's time between launches,
+    which ``cuda_ms`` counts where a call enqueues faster work than the
+    host can issue (a kernel of ~0.02 ms behind a Python wrapper)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
     return start.elapsed_time(end) / reps
 
 
@@ -2265,6 +2290,12 @@ def path_run(torch, dev, problem, lams, cfg, w_true, *, dense=False,
     require(bool(torch.isfinite(res.w).all()
                  and torch.isfinite(res.objective).all()),
             f"{variant} path result not finite")
+    # the lanes share the data, so the path's certificate computes its
+    # pseudo-inverse once (squared loss + TV: the optimality gap)
+    require(launches["sym_pinv"]
+            == int("optimality_gap" in res.diagnostics),
+            f"{variant} path: {launches['sym_pinv']} sym_pinv launches for "
+            f"diagnostics {sorted(res.diagnostics)}")
 
     # the lanes alone, from the same warm start (the kernel is
     # deterministic, so the warm solve gives the same bits again)
@@ -3090,15 +3121,17 @@ def pinv_cost(n: int, matrices: int) -> dict:
 
 def certificate_cost(torch, dev) -> list:
     """The optimality-gap certificate (``engine.step.optimality_gap``) on
-    the card at n = 2, 16, 32 and 64 features on 1000 nodes and n = 16 on
-    100,000: its pseudo-inverse, the ``sym_pinv`` kernel, against its
-    plain version (``engine.step.sym_pinv``, Jacobi in tensor ops; the
-    kernel within 1e-4 of the float64 pinv relative to each matrix's
-    scale, or twice the plain version's own distance from it) and
-    ``torch.linalg.pinv`` (which checks its status on the host), CUDA-event
-    ms of each and the kernel's bound; the certificate's ms and host wall
-    ms a call, and one certificate under ``set_sync_debug_mode("error")``
-    (no host read); and at the full-size solve's shape.  Returns (rows, the kernel's entry for the kernels'
+    the card at n = 2, 4, 8, 16, 32 and 64 features on 1000 nodes and n =
+    16 on 100,000: its pseudo-inverse, the ``sym_pinv`` kernel (each row
+    names the kernel's variant for its width), against its plain version
+    (``engine.step.sym_pinv``, Jacobi in tensor ops; the kernel within
+    1e-4 of the float64 pinv relative to each matrix's scale, or twice
+    the plain version's own distance from it) and ``torch.linalg.pinv``
+    (which checks its status on the host), CUDA-event ms of each, the
+    kernel's device ms (``graph_ms``) and its bound; the certificate's ms
+    and host wall ms a call, and one certificate under
+    ``set_sync_debug_mode("error")`` (no host read); and at the full-size
+    solve's shape.  Returns (rows, the kernel's entry for the kernels'
     line: at the main path's shapes, n = 2 on FULL_NODES nodes, the
     full-size solve's certificate)."""
     from repro_torch.api import Problem
@@ -3109,8 +3142,8 @@ def certificate_cost(torch, dev) -> list:
     from repro_torch.kernels import sym_pinv as kernel
 
     rows, entry = [], None
-    for v, n in ((1000, 2), (1000, 16), (1000, 32), (1000, 64),
-                 (100_000, 16), (FULL_NODES, 2)):
+    for v, n in ((1000, 2), (1000, 4), (1000, 8), (1000, 16), (1000, 32),
+                 (1000, 64), (100_000, 16), (FULL_NODES, 2)):
         rng = np.random.default_rng(v + n)
         x = rng.standard_normal((v, n + 4, n)).astype(np.float32)
         y = rng.standard_normal((v, n + 4)).astype(np.float32)
@@ -3149,12 +3182,15 @@ def certificate_cost(torch, dev) -> list:
         finally:
             torch.cuda.set_sync_debug_mode(0)
         row = {"nodes": v, "features": n, "sweeps": sweeps,
+               "variant": kernel.variant(n),
                "kernel_max_rel_err_vs_plain": err,
                "kernel_max_rel_err_vs_pinv": err_lib,
                "kernel_max_rel_err_vs_f64": err_exact,
                "plain_max_rel_err_vs_f64": plain_exact,
                "kernel_ms": cuda_ms(lambda _: kernel.sym_pinv(
                    q, sweeps=sweeps), reps=10),
+               "kernel_device_ms": graph_ms(lambda: kernel.sym_pinv(
+                   q, sweeps=sweeps)),
                "plain_ms": cuda_ms(lambda _: sym_pinv(q), reps=3),
                "pinv_ms": cuda_ms(lambda _: torch.linalg.pinv(q), reps=3),
                **pinv_cost(n, v),
@@ -5102,6 +5138,53 @@ def time_streamed_variants(torch, compact: bool, device) -> dict:
     return rows
 
 
+#: the certificate's pseudo-inverses ``--ab`` times: (matrices, n)
+SYM_PINV_AB = ((FULL_NODES, 2), (1000, 4), (1000, 8), (1000, 16),
+               (100_000, 16), (1000, 32), (1000, 64))
+
+
+def time_sym_pinv(torch, problem, outputs: Path, device) -> dict:
+    """The ``sym_pinv`` kernel alone at each SYM_PINV_AB shape, on the
+    covariances ``certificate_cost`` draws (X^T X / m, m = n + 4 samples
+    from a seeded generator on the card): ms a call (``cuda_ms``) and its
+    device ms (``graph_ms``), the outputs saved to ``outputs`` (.npz) for
+    the A/B's comparison; and the certificate itself (``optimality_gap``)
+    on ``problem`` (the saved full-size squared instance, n = 2) at a
+    seeded iterate, ms a call.  Calls only ``kernels.sym_pinv.sym_pinv(q,
+    sweeps=)`` and ``engine.step.jacobi_sweeps``, which every checkout
+    since the eighth slice has."""
+    from repro_torch.engine.step import jacobi_sweeps, optimality_gap
+    from repro_torch.kernels.sym_pinv import sym_pinv
+
+    rows, saved = {}, {}
+    for v, n in SYM_PINV_AB:
+        gen = torch.Generator(device=device).manual_seed(v + n)
+        x = torch.randn((v, n + 4, n), device=device, generator=gen)
+        q = (torch.einsum("vmn,vmk->vnk", x, x) / (n + 4)).contiguous()
+        del x
+        sweeps = jacobi_sweeps(n)
+        got = sym_pinv(q, sweeps=sweeps).cpu().numpy()
+        key = f"{v}x{n}"
+        rows[key] = {"matrices": v, "features": n,
+                     "ms": cuda_ms(lambda _: sym_pinv(q, sweeps=sweeps),
+                                   reps=20),
+                     "device_ms": graph_ms(lambda: sym_pinv(q,
+                                                            sweeps=sweeps))}
+        saved[key] = got
+        del q
+        torch.cuda.empty_cache()
+    np.savez(outputs, **saved)
+    gen = torch.Generator(device=device).manual_seed(7)
+    w = torch.randn((problem.num_nodes, problem.num_features),
+                    device=device, generator=gen)
+    u = 0.01 * torch.randn((problem.graph.num_edges, problem.num_features),
+                           device=device, generator=gen)
+    rows["optimality_gap"] = {
+        "nodes": problem.num_nodes, "features": problem.num_features,
+        "ms": cuda_ms(lambda _: optimality_gap(problem, w, u), reps=5)}
+    return rows
+
+
 def time_fused_solve(root: Path, path: Path, reps: int = 3,
                      device="cuda") -> dict:
     """In this process, with the ``repro_torch`` of checkout ``root``:
@@ -5112,9 +5195,11 @@ def time_fused_solve(root: Path, path: Path, reps: int = 3,
     split (``time_variants``; the register tile's lane kernel over six
     lanes: ``time_lane_variants``; the wide ones at n = WIDE_N:
     ``time_wide_variants``; the register tile's streamed logistic one on
-    the many-sample instance: ``time_streamed_variants``).  Uses only
-    what every slice of the port since the third has (the wide and
-    streamed rows: since the eighth), and passes the compact incidence
+    the many-sample instance: ``time_streamed_variants``), and the
+    certificate's ``sym_pinv`` kernel alone at SYM_PINV_AB's shapes and
+    the full-size certificate (``time_sym_pinv``).  Uses only what every
+    slice of the port since the third has (the wide and streamed rows and
+    ``sym_pinv``: since the eighth), and passes the compact incidence
     where the checkout's kernel reads it, so it times the parent
     checkout as well."""
     import inspect
@@ -5166,6 +5251,10 @@ def time_fused_solve(root: Path, path: Path, reps: int = 3,
     out["wide_kernels"] = time_wide_variants(torch, graph, z["assign"], lt,
                                              compact, device)
     out["streamed_kernels"] = time_streamed_variants(torch, compact, device)
+    out["sym_pinv_outputs"] = str(path.with_name(
+        f"ab_sym_pinv_{os.getpid()}.npz"))
+    out["sym_pinv"] = time_sym_pinv(torch, problems["squared"],
+                                    Path(out["sym_pinv_outputs"]), device)
     if compact:
         out["kernel_digests"] = kernel_digests(torch, device)
     return {**out, "iterations_per_s": rates}
@@ -5181,10 +5270,14 @@ def ab_main(argv: list) -> int:
     state, ``time_lane_variants``; the wide variant at n = WIDE_N on
     the same graph, ``time_wide_variants``; the streamed logistic one on
     the many-sample instance in float32, bfloat16 and over six lanes,
-    ``time_streamed_variants``), and the register-tile kernel's
-    outputs on ``kernel_vs_plain``'s inputs, which must be the same bits
-    in every process (``kernel_digests``).  ``--time-solve ROOT NPZ``:
-    one such process."""
+    ``time_streamed_variants``), the register-tile kernel's outputs on
+    ``kernel_vs_plain``'s inputs, which must be the same bits in every
+    process (``kernel_digests``), and the certificate's ``sym_pinv``
+    kernel at SYM_PINV_AB's shapes and the full-size certificate
+    (``time_sym_pinv``): each width's ms in every process, and each
+    process's outputs against the first parent's (the same bits, or the
+    largest difference; the thread variant's widths, n <= 4, must be the
+    same bits).  ``--time-solve ROOT NPZ``: one such process."""
     import subprocess as sp
 
     import torch
@@ -5217,13 +5310,51 @@ def ab_main(argv: list) -> int:
         path.unlink(missing_ok=True)
     digests = [r.get("kernel_digests") for r in runs]
     same = all(d == digests[0] for d in digests) and digests[0] is not None
+    pinv = sym_pinv_ab(runs)
     print(card_line(), flush=True)
     emit({"phase": "ab", "parent": str(parent),
           "kind": torch.cuda.get_device_name(0), "runs": runs,
-          "register_tile_bits_equal_across_checkouts": same})
+          "register_tile_bits_equal_across_checkouts": same,
+          "sym_pinv": pinv})
     require(same, "the register-tile kernel's bits differ between the "
             "checkouts on kernel_vs_plain's inputs")
+    require(all(row["bits_equal_to_parent"] for row in pinv.values()
+                if "bits_equal_to_parent" in row and row["features"] <= 4),
+            f"the sym_pinv thread variant's bits differ from the parent's "
+            f"{pinv}")
     return 0
+
+
+def sym_pinv_ab(runs: list) -> dict:
+    """``sym_pinv`` of the A/B runs (parent, change, change, parent) at
+    each shape: ms and device ms in each run, and each run's outputs
+    against the first run's (the same bits in every run, and the largest
+    difference of any); the full-size certificate's ms in each run.
+    Deletes the saved outputs."""
+    try:
+        first = np.load(runs[0]["sym_pinv_outputs"])
+        rows = {}
+        for key, row in runs[0]["sym_pinv"].items():
+            rows[key] = {k: row[k] for k in ("matrices", "features",
+                                              "nodes") if k in row}
+            for k in ("ms", "device_ms"):
+                if k in row:
+                    rows[key][k] = [r["sym_pinv"][key][k] for r in runs]
+            if key not in first:
+                continue
+            base, equal, diff = first[key], True, 0.0
+            for r in runs[1:]:
+                other = np.load(r["sym_pinv_outputs"])[key]
+                equal = equal and np.array_equal(other.view(np.uint32),
+                                                 base.view(np.uint32))
+                diff = max(diff, float(np.abs(other.astype(np.float64)
+                                              - base).max()))
+            rows[key].update(bits_equal_to_parent=equal,
+                             max_abs_diff_vs_parent=diff)
+        return rows
+    finally:
+        for r in runs:
+            Path(r["sym_pinv_outputs"]).unlink(missing_ok=True)
 
 
 def main() -> int:

@@ -64,6 +64,7 @@ from repro_torch.engine import (BatchedDenseExecutor, DenseExecutor,
                                 certificate, device_fetch, device_loop,
                                 pd_residual, scan_solve)
 from repro_torch.engine import pd_step as engine_pd_step
+from repro_torch.engine.step import gap_data_terms
 from repro_torch.kernels import ops, pd_step as pd_kernel
 
 BACKENDS: dict[str, Callable] = {}
@@ -228,8 +229,20 @@ def lane_metrics(loss: Loss, reg, src, dst, weights, data, lam,
 def _batched_certificate(problems: list, w_b, u_b) -> dict:
     """The eq.-11 certificate of each lane (``problems[i]`` at ``w_b[i]``,
     ``u_b[i]``), stacked: ``{name: (L,)}`` (the reference vmaps
-    ``certificate``)."""
-    rows = [certificate(p, w_b[i], u_b[i]) for i, p in enumerate(problems)]
+    ``certificate``).  Lanes that share one data set (a lambda path's
+    ``problem.with_lam``) share its optimality-gap terms, pinv included:
+    one ``sym_pinv`` launch a path, as the reference's vmap over (lam, w,
+    u) leaves its pinv unbatched; ``solve_many``'s problems each have
+    their own."""
+    shared = {}
+
+    def gap_terms(data):
+        if id(data) not in shared:
+            shared[id(data)] = gap_data_terms(data)
+        return shared[id(data)]
+
+    rows = [certificate(p, w_b[i], u_b[i], gap_terms=gap_terms)
+            for i, p in enumerate(problems)]
     return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
 
 

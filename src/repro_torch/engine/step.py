@@ -125,12 +125,17 @@ def pd_residual(tau, sigma, w, u, w_new, u_new, *,
         return torch.maximum(torch.max(dw), torch.max(du))
 
 
-def certificate(problem, w: torch.Tensor, u: torch.Tensor) -> dict:
+def certificate(problem, w: torch.Tensor, u: torch.Tensor, *,
+                gap_terms=None) -> dict:
     """Optimality diagnostics from the coupled conditions (paper eq. 11).
 
     * dual feasibility (regularizer-defined; <= 0 means feasible),
     * stationarity residual at labeled nodes for the squared loss,
     * for squared loss + TV, the true duality gap :func:`optimality_gap`.
+
+    ``gap_terms``: a function of the problem's data that stands in for
+    :func:`gap_data_terms` (a lambda path's lanes share one data set, so
+    ``api.backends._batched_certificate`` computes its terms once).
     """
     from repro_torch.api.losses import SquaredLoss
     from repro_torch.api.regularizers import TotalVariation
@@ -149,7 +154,9 @@ def certificate(problem, w: torch.Tensor, u: torch.Tensor) -> dict:
         diag["stationarity_residual_labeled"] = torch.max(
             torch.abs(station))
         if isinstance(problem.regularizer, TotalVariation):
-            diag["optimality_gap"] = optimality_gap(problem, w, u)
+            terms = None if gap_terms is None else gap_terms(data)
+            diag["optimality_gap"] = optimality_gap(problem, w, u,
+                                                    terms=terms)
     return diag
 
 
@@ -260,8 +267,23 @@ def certificate_pinv(a: torch.Tensor) -> torch.Tensor:
     return sym_pinv(a)
 
 
-def optimality_gap(problem, w: torch.Tensor, u: torch.Tensor
-                   ) -> torch.Tensor:
+def gap_data_terms(data) -> tuple:
+    """The part of :func:`optimality_gap` that depends on the data alone:
+    each node's Q_i = X_i^T X_i / m_i, c_i = X_i^T y_i / m_i, y_i^T y_i /
+    m_i and pinv(Q_i) (:func:`certificate_pinv`: one ``sym_pinv`` launch
+    on the card).  The reference vmaps its certificate over the lanes of
+    a lambda path only, so its pinv runs once a path; computing these
+    once and passing them to each lane's gap does the same."""
+    cnt = data.counts()[:, None]
+    xm = data.x * data.sample_mask[..., None]
+    q = torch.einsum("vmn,vmk->vnk", xm, data.x) / cnt[..., None]
+    c = torch.einsum("vmn,vm->vn", xm, data.y) / cnt
+    yty = torch.sum(data.y ** 2 * data.sample_mask, dim=1) / cnt[:, 0]
+    return q, c, yty, certificate_pinv(q)
+
+
+def optimality_gap(problem, w: torch.Tensor, u: torch.Tensor, *,
+                   terms: tuple | None = None) -> torch.Tensor:
     """True eq.-11 duality gap for squared loss + TV: ``P(w) - g(u)``.
 
     At the feasible dual point ``clip(u, +-lam A_e)`` the Lagrangian dual
@@ -272,21 +294,18 @@ def optimality_gap(problem, w: torch.Tensor, u: torch.Tensor
     ``-R |z_i|``.  Weak duality makes the gap a certified upper bound on
     ``P(w) - P*`` (see ``repro.engine.step.optimality_gap``).  The pinv
     is :func:`certificate_pinv`, so the certificate reads nothing on the
-    host.
+    host.  ``terms``: the problem's :func:`gap_data_terms`, where the
+    caller has them (the same bits as computing them here).
     """
     data = problem.data
     lam_a = (problem.lam * problem.graph.weights)[:, None]
     u_feas = torch.minimum(torch.maximum(u, -lam_a), lam_a)
     z = problem.graph.incidence_transpose_apply(u_feas)        # (V, n)
-    cnt = data.counts()[:, None]
-    xm = data.x * data.sample_mask[..., None]
-    q = torch.einsum("vmn,vmk->vnk", xm, data.x) / cnt[..., None]
-    c = torch.einsum("vmn,vm->vn", xm, data.y) / cnt
-    yty = torch.sum(data.y ** 2 * data.sample_mask, dim=1) / cnt[:, 0]
+    q, c, yty, pinv = gap_data_terms(data) if terms is None else terms
     radius = 2.0 * torch.max(torch.linalg.norm(w, dim=1)) + 1.0
 
     rhs = c - 0.5 * z
-    w_star = torch.einsum("vnk,vk->vn", certificate_pinv(q), rhs)
+    w_star = torch.einsum("vnk,vk->vn", pinv, rhs)
     lval = (torch.einsum("vn,vnk,vk->v", w_star, q, w_star)
             - 2.0 * torch.sum(c * w_star, dim=1) + yty)
     # grad of f(w) = ell(w) + z^T w at w*: 2 (Q w* - rhs)

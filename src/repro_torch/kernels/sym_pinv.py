@@ -3,14 +3,19 @@
 The eq.-11 certificate's pseudo-inverse (``engine/step.py:
 optimality_gap``).  It ports no TPU kernel: the reference calls
 ``jnp.linalg.pinv`` there.  The kernel (``src/repro_torch/csrc/
-sym_pinv.cu``, one thread block a matrix) runs the cyclic Jacobi of its
-plain version, :func:`repro_torch.engine.step.sym_pinv`, in shared
-memory, with the same round-robin pairs, sweeps and eigenvalue cut; its
-source note says what bounds it.  It reads nothing back to the host, so
-it runs under ``torch.cuda.set_sync_debug_mode("error")`` and inside a
-CUDA-graph capture.  A width whose matrix and rotations (2 n^2 floats)
-pass a block's shared memory is refused (:func:`takes`: n <= 169 on the
-H100); ``engine.step.optimality_gap`` keeps the plain version there.
+sym_pinv.cu``) runs the cyclic Jacobi of its plain version,
+:func:`repro_torch.engine.step.sym_pinv`, with the same round-robin
+pairs, sweeps and eigenvalue cut, in one of three variants by width
+(:func:`variant`): ``"thread"`` (a thread a matrix in registers, n <= 4;
+the main path's n = 2), ``"warp"`` (a warp a matrix in its slice of
+shared memory, n <= 32) and ``"block"`` (a thread block a matrix); each
+does every entry's float operations in the same order, so all three give
+the same bits.  Its source note says what bounds it.  It reads nothing
+back to the host, so it runs under ``torch.cuda.set_sync_debug_mode(
+"error")`` and inside a CUDA-graph capture.  A width whose matrix and
+rotations (2 n^2 floats) pass a block's shared memory is refused
+(:func:`takes`: n <= 169 on the H100); ``engine.step.optimality_gap``
+keeps the plain version there.
 
 This wrapper takes CUDA tensors only and raises on anything it does not
 take.  ``sym_pinv.launches`` counts the launches (a call inside a
@@ -27,28 +32,40 @@ import torch
 
 from repro_torch.kernels import _build
 
+#: the kernel's variants, in the order of ``csrc/sym_pinv.cu:Variant``
+VARIANTS = ("thread", "warp", "block")
+
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
              ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
-def plan_bytes(n: int) -> tuple[int, int]:
-    """``(bytes, limit)``: the shared memory one n x n matrix takes in the
-    kernel's block, and the most a block may take (``csrc/sym_pinv.cu:
-    sym_pinv_plan``); builds the library on first use."""
-    need, limit = ctypes.c_longlong(), ctypes.c_longlong()
+def plan(n: int) -> tuple[int, int, str]:
+    """``(bytes, limit, variant)``: the variant width ``n`` gets, the
+    shared memory a block of it takes, and the most a block may take
+    (``csrc/sym_pinv.cu:sym_pinv_plan``); builds the library on first
+    use."""
+    need, limit, chosen = (ctypes.c_longlong(), ctypes.c_longlong(),
+                           ctypes.c_int())
     err = _build.entry("sym_pinv_plan",
                        [ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
-                        ctypes.POINTER(ctypes.c_longlong)])(
-        n, ctypes.byref(need), ctypes.byref(limit))
+                        ctypes.POINTER(ctypes.c_longlong),
+                        ctypes.POINTER(ctypes.c_int)])(
+        n, ctypes.byref(need), ctypes.byref(limit), ctypes.byref(chosen))
     if err != 0:
         raise RuntimeError(f"sym_pinv_plan failed: CUDA error {err}")
-    return need.value, limit.value
+    return need.value, limit.value, VARIANTS[chosen.value]
+
+
+def variant(n: int) -> str:
+    """The variant the kernel runs at width ``n``: ``"thread"``,
+    ``"warp"`` or ``"block"``."""
+    return plan(int(n))[2]
 
 
 def takes(n: int) -> bool:
     """Whether the kernel takes matrices of width ``n``."""
-    need, limit = plan_bytes(int(n))
+    need, limit, _ = plan(int(n))
     return need <= limit
 
 
@@ -70,7 +87,7 @@ def sym_pinv(a: torch.Tensor, *, sweeps: int) -> torch.Tensor:
         raise ValueError(f"sym_pinv launches on CUDA tensors; got {device} "
                          "(engine.step.sym_pinv is the plain version)")
     n = a.shape[-1]
-    need, limit = plan_bytes(n)
+    need, limit, _ = plan(n)
     if need > limit:
         raise NotImplementedError(
             f"the sym_pinv kernel keeps a matrix and its rotations (2 n^2 "
